@@ -1,0 +1,421 @@
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the compositor kernels (gaussianip_tpu_torch/csrc/composite.cu, K1
+forward and K2 backward) from the checkout, holds each against its plain
+PyTorch version at the stage-1 shapes (4 cameras, 512x512, capacity 524288,
+d_max=16), checks the tiled renderer against the dense reference
+compositor, then drives stage-1 training with stub guidance at the recipe's
+sizes (configs/exp.yaml: pts_num 100000, capacity 524288) and one densify
+and one prune at full size. Prints one line per phase, a `kernels` JSON
+line, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Any failed phase exits non-zero; there is no
+CPU path.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_STEPS = 25
+WARMUP_STEPS = 5
+PTS_NUM = 100_000
+CAPACITY = 524_288
+RES = 512
+BATCH = 4
+D_MAX = 16
+SEED = 42
+# H100 SXM peaks (data sheet): f32 outside the tensor cores, HBM3 rate
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per (instance, pixel) pair walked, counted from
+# csrc/composite.cu: K1 power 11, alpha min 1, exp 1, T update 2, weight 1,
+# 5 accumulations 10 -> 26; K2 power 11, exp 1, min 1, 1-alpha 1, divide 1,
+# weight 1, feat.gout 9, dalpha 4, dpower 1, suffix 2, 11 gradient terms 11,
+# their tile reduction 11 -> 54
+OPS_PER_PAIR = {"fwd": 26, "bwd": 54}
+BYTES_PER_INSTANCE = 64  # one [16] f32 column of data (or dgrad)
+# tolerances kernel vs plain (both f32; the kernel composites sequentially,
+# the plain version with a cumprod, so isolated pixels may flip across the
+# 1/255 and T=1e-4 gates): q99 and worst case of |diff| per output row
+FWD_TOL = {"rgb": 3e-4, "alpha": 3e-4, "depth": 2e-3}
+WORST_FACTOR = 100.0
+# dgrad: worst |diff| relative to the largest |value| of its row
+BWD_REL_TOL = 2e-3
+# tiled renderer vs the dense reference compositor on a small scene: worst
+# gradient |diff| relative to the field's largest |gradient| (the JAX
+# package's tiled compositor deviates from its dense oracle by 1.4e-3 on
+# f_dc on the same scene on the CPU, the port's by the same amount)
+ORACLE_GRAD_TOL = 5e-3
+
+
+def log(phase: str, **kw):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def build_scene(dev):
+    import torch
+    from gaussianip_tpu_torch.human.skeleton import Skeleton
+    from gaussianip_tpu_torch.human.smplx import make_test_model
+    from gaussianip_tpu_torch.model.gaussians import create_from_pcd
+    from gaussianip_tpu_torch.ops.knn import mean_dist2_3nn
+
+    sk = Skeleton(_test_model=make_test_model(np.random.default_rng(0),
+                                              n_verts=2000, n_faces=3000,
+                                              device=dev))
+    sk.forward_smplx()
+    sk.scale(-10)
+    pts = sk.sample_smplx_points(PTS_NUM, seed=SEED)
+    d2 = mean_dist2_3nn(torch.as_tensor(pts, device=dev))
+    gs = create_from_pcd(pts, np.full((PTS_NUM, 3), 0.5, np.float32),
+                         CAPACITY, d2, device=dev)
+    return sk, gs
+
+
+def check_kernels(gs, cams, rcfg, gen, tag: str, timing: bool):
+    """K1/K2 against their plain versions on one camera batch."""
+    import torch
+    from gaussianip_tpu_torch.render import composite_cuda as cc
+    from gaussianip_tpu_torch.render.render import instance_data
+
+    with torch.no_grad():
+        data, bn = instance_data(gs, cams, rcfg)
+    starts, counts = bn.starts, bn.counts
+    out_k = cc.composite_fwd_cuda(data, starts, counts)
+    out_p = cc.composite_fwd_plain(data, starts, counts)
+    torch.cuda.synchronize()
+    res = {}
+    for name, rows in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
+                       ("alpha", slice(4, 5))):
+        d = (out_k[:, :, rows] - out_p[:, :, rows]).abs().flatten()
+        q99 = float(torch.quantile(d[::max(1, d.numel() // 1_000_000)]
+                                   .float(), 0.99))
+        mx = float(d.max())
+        res[name] = (q99, mx)
+        if not (q99 < FWD_TOL[name] and mx < WORST_FACTOR * FWD_TOL[name]):
+            raise AssertionError(f"K1 {tag} {name}: q99 {q99} max {mx} vs "
+                                 f"tol {FWD_TOL[name]}")
+    last_eq = float((out_k[:, :, 5] == out_p[:, :, 5]).float().mean())
+    gout = torch.randn(out_k.shape, generator=gen, device=out_k.device)
+    gout[:, :, 5:] = 0.0  # the render path's gout has zero rows 5-7
+    dg_k = cc.composite_bwd_cuda(data, starts, counts, out_k, gout)
+    dg_p = cc.composite_bwd_plain(data, starts, counts, out_k, gout)
+    torch.cuda.synchronize()
+    scale = dg_p.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1e-30)
+    rel = ((dg_k - dg_p).abs() / scale)
+    bwd_rel = float(rel.max())
+    bwd_abs = float((dg_k - dg_p).abs().max())
+    if not bwd_rel < BWD_REL_TOL:
+        raise AssertionError(f"K2 {tag}: worst |diff|/row max {bwd_rel} vs "
+                             f"{BWD_REL_TOL}")
+    live = int(counts.to(torch.int64).sum())
+    # (instance, pixel) pairs the data needs walked: every pixel up to its
+    # last contributor
+    pairs = int((out_k[:, :, 5].to(torch.int64) + 1).sum())
+    log(f"kernels:{tag}", live_instances=live,
+        n_dropped=[int(x) for x in bn.n_dropped], pairs=pairs,
+        fwd_q99_max={k: v for k, v in res.items()},
+        last_index_equal=round(last_eq, 6), bwd_max_abs=bwd_abs,
+        bwd_max_rel=bwd_rel)
+    info = {"live": live, "pairs": pairs, "fwd_err": max(
+        v[1] for v in res.values()), "bwd_err": bwd_abs}
+    if timing:
+        info["fwd_ms"] = cuda_ms(
+            lambda: cc.composite_fwd_cuda(data, starts, counts), 20)
+        info["bwd_ms"] = cuda_ms(
+            lambda: cc.composite_bwd_cuda(data, starts, counts, out_k, gout),
+            20)
+        info["fwd_plain_ms"] = cuda_ms(
+            lambda: cc.composite_fwd_plain(data, starts, counts), 3, 1)
+        info["bwd_plain_ms"] = cuda_ms(
+            lambda: cc.composite_bwd_plain(data, starts, counts, out_k, gout),
+            3, 1)
+        nt_total = starts.numel()
+        out_bytes = nt_total * 8 * 256 * 4
+        info["fwd_bytes"] = live * BYTES_PER_INSTANCE + out_bytes
+        info["bwd_bytes"] = (2 * live * BYTES_PER_INSTANCE + 2 * out_bytes)
+        log(f"timing:{tag}", **{k: info[k] for k in (
+            "fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms")})
+    return info
+
+
+def check_oracle(gs, dev):
+    """Tiled renderer (K1/K2) against the dense reference compositor on a
+    small input: images and gradients."""
+    import torch
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
+                                                   eval_orbit_batch)
+    from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
+    from gaussianip_tpu_torch.render import composite_cuda as cc
+    from gaussianip_tpu_torch.render.render import RenderConfig, render
+
+    n, res = 300, 32
+    small = gs.replace(**{f: getattr(gs, f)[:n].clone()
+                          for f in PARAM_FIELDS}, n_active=n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    small.opacity.uniform_(-2.0, 3.0, generator=g)
+    ccfg = CameraSamplerConfig(eval_height=res, eval_width=res,
+                               n_val_views=2)
+    orbit = eval_orbit_batch(ccfg, "val", device=dev)
+    cams = camera_from_c2w(orbit.c2w[:2], orbit.fovy[:2], res, res)
+    bg = torch.zeros(3, device=dev)
+    tgt = torch.rand((2, res, res, 3), generator=g, device=dev)
+    launches = cc.composite_fwd_cuda.launches
+
+    def grads(cfg):
+        leaves = {f: getattr(small, f).detach().requires_grad_(True)
+                  for f in PARAM_FIELDS}
+        out = render(small.replace(**leaves), cams, bg, cfg)
+        loss = ((out.rgb - tgt) ** 2).sum() + 0.1 * out.depth.sum()
+        gr = torch.autograd.grad(loss, [leaves[f] for f in PARAM_FIELDS])
+        return out, dict(zip(PARAM_FIELDS, gr))
+
+    o_t, g_t = grads(RenderConfig(d_max=16, depth_key="exact2",
+                                  sort_stable=True))
+    o_r, g_r = grads(RenderConfig(backend="reference"))
+    if cc.composite_fwd_cuda.launches != launches + 1:
+        raise AssertionError("oracle check did not go through K1")
+    errs = {}
+    for name, a, b, tol in (("rgb", o_t.rgb, o_r.rgb, 3e-4),
+                            ("alpha", o_t.alpha, o_r.alpha, 3e-4),
+                            ("depth", o_t.depth, o_r.depth, 2e-3)):
+        d = (a - b).detach().abs().flatten()
+        q99, mx = float(torch.quantile(d, 0.99)), float(d.max())
+        errs[name] = (q99, mx)
+        if not (q99 < tol and mx < 100 * tol):
+            raise AssertionError(f"oracle {name}: q99 {q99} max {mx}")
+    gerr = {}
+    # (rotation is left out: the gaussians are isotropic, so its gradient
+    # is zero up to rounding in both)
+    for f in ("xyz", "f_dc", "scaling", "opacity"):
+        # worst |diff| against the field's largest gradient: gate flips at
+        # alpha = 1/255 and T = 1e-4 move single entries, not the field
+        gerr[f] = float((g_t[f] - g_r[f]).abs().max()
+                        / g_r[f].abs().max().clamp(min=1e-12))
+        if not gerr[f] < ORACLE_GRAD_TOL:
+            raise AssertionError(f"oracle grad {f}: {gerr[f]}")
+    log("oracle", n=n, res=res, image_q99_max=errs, grad_rel_err=gerr)
+
+
+def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
+                  n: int = 3):
+    """Device time by kernel over n steps (torch.profiler), and the device's
+    busy share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.system import stage1 as s1
+
+    step_fn = s1.make_train_step(cfg, cam_cfg, rcfg, AdamHyper(), guidance,
+                                 points3d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ts, _ = step_fn(ts, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
+                        or getattr(e, "self_cuda_time_total", 0))
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        if dev_us(e) > 0:
+            (kernels if e.device_type == cuda else ops).append(
+                (dev_us(e) / n / 1e3, e.count // n, e.key))
+    busy = sum(ms for ms, _, _ in kernels)
+    log("profile", steps=n, wall_ms_per_step=round(wall_ms, 3),
+        device_ms_per_step=round(busy, 3),
+        device_busy_share=round(busy / wall_ms, 4),
+        kernel_launches_per_step=sum(c for _, c, _ in kernels))
+    for title, rows in (("kernels", kernels), ("ops", ops)):
+        for ms, count, name in sorted(rows, reverse=True)[:12]:
+            print(f"  {title}: {ms:8.3f} ms/step x{count:<4d} {name[:100]}",
+                  flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from gaussianip_tpu_torch import _nvcc
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
+                                                   sample_train_batch)
+    from gaussianip_tpu_torch.guidance.stub import make_stub_guidance
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
+    from gaussianip_tpu_torch.render import composite_cuda as cc
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system import stage1 as s1
+
+    dev = "cuda"
+    # 1. device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    log("device", name=repr(kind), smi=repr(smi), torch=torch.__version__,
+        cuda=torch.version.cuda, tf32="off (matmul and cudnn)")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _nvcc.build(["composite"])
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in _nvcc.ptxas_log.get("composite", "")
+            .splitlines() if "registers" in ln]
+    log("build", seconds=round(build_s, 2), ptxas=regs)
+
+    # 3. full-size scene
+    t0 = time.perf_counter()
+    sk, gs0 = build_scene(dev)
+    torch.cuda.synchronize()
+    log("scene", points=PTS_NUM, capacity=gs0.capacity,
+        n_active=gs0.n_active, seconds=round(time.perf_counter() - t0, 2))
+
+    # 4. kernels vs plain at the slice's shapes
+    rcfg = RenderConfig(d_max=D_MAX)
+    cam_cfg = CameraSamplerConfig(height=RES, width=RES, batch_size=BATCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    batch = sample_train_batch(cam_cfg, gen, 0, dev)
+    cams = camera_from_c2w(batch.c2w, batch.fovy, RES, RES)
+    info = check_kernels(gs0, cams, rcfg, gen, "init", timing=True)
+    hard = gs0.replace(opacity=gs0.opacity.clone())
+    hard.opacity[:PTS_NUM].uniform_(-2.0, 4.0, generator=gen)
+    check_kernels(hard, cams, rcfg, gen, "opaque", timing=False)
+    check_oracle(gs0, dev)
+
+    # 5. stage-1 steps at the recipe's sizes with stub guidance
+    cfg = s1.Stage1Config(render_height=RES, render_width=RES)
+    tgt = np.zeros((256, 256, 3), np.float32)
+    tgt[64:192, 96:160] = 0.8
+    guidance = make_stub_guidance(target_rgb=tgt, noise_scale=0.01)
+    ts = s1.init_train_state(gs0)
+    x0 = {f: getattr(gs0, f).clone() for f in PARAM_FIELDS}
+    stamps, losses = [], []
+
+    def on_step(i, m):  # metrics arrive as host floats: the step has ended
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    cc.composite_fwd_cuda.launches = 0
+    cc.composite_bwd_cuda.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    ts = s1.train_stage1(ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance,
+                         sk.points3d, gen, n_steps=N_STEPS, log_every=1,
+                         log_fn=on_step)
+    torch.cuda.synchronize()
+    launches = {"fwd": cc.composite_fwd_cuda.launches,
+                "bwd": cc.composite_bwd_cuda.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
+    med = float(np.median(step_ms[WARMUP_STEPS:]))
+    moved = {f: float((getattr(ts.gaussians, f) - x0[f]).abs().max())
+             for f in ("xyz", "f_dc", "opacity", "scaling")}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"parameters did not move: {moved}")
+    if launches != {"fwd": N_STEPS, "bwd": N_STEPS}:
+        raise AssertionError(f"K1/K2 launches {launches} != {N_STEPS} each")
+    log("stage1", steps=N_STEPS, loss_first=losses[0], loss_last=losses[-1],
+        median_ms_per_step=med, step_ms=[round(x, 3) for x in step_ms],
+        peak_gib=round(peak_gib, 3), launches=launches, moved=moved)
+
+    profile_steps(ts, cfg, cam_cfg, rcfg, guidance, sk.points3d, gen)
+
+    densify, prune = s1.make_densify_fns(cfg)
+    stats = ts.stats
+    n0 = ts.gaussians.n_active
+    t0 = time.perf_counter()
+    ts_d, dropped = densify(ts, gen)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts_p = prune(ts_d)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    for name, t in (("densify", ts_d), ("prune", ts_p)):
+        for f in PARAM_FIELDS:
+            if not torch.isfinite(getattr(t.gaussians, f)).all():
+                raise AssertionError(f"{name}: non-finite {f}")
+    log("densify_prune", n_before=n0, hot=int((stats.xyz_grad_accum
+        / stats.denom.clamp(min=1) >= cfg.max_grad).sum()),
+        n_after_densify=ts_d.gaussians.n_active, dropped=dropped,
+        n_after_prune=ts_p.gaussians.n_active, densify_s=round(t_d, 4),
+        prune_s=round(t_p, 4))
+
+    # 6. kernels line
+    def bound(kind_):
+        t_bytes = info[f"{kind_}_bytes"] / PEAK_BYTES * 1e3
+        t_ops = info["pairs"] * OPS_PER_PAIR[kind_] / PEAK_F32_OPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                     else "operations")
+
+    src = "gaussianip_tpu_torch/csrc/composite.cu"
+    kernels = []
+    for kind_, name, rep, err in (
+            ("fwd", "K1 composite_fwd",
+             "gaussianip_tpu/render/composite_pallas.py:221", "fwd_err"),
+            ("bwd", "K2 composite_bwd",
+             "gaussianip_tpu/render/composite_pallas.py:246", "bwd_err")):
+        b_ms, b_by = bound(kind_)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[kind_], "max_abs_err": info[err],
+            "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(json.dumps({"kernels": kernels, "not_ported": [{
+        "name": "K3 conv3x3",
+        "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
+        "reason": "diffusion stack is not on this slice's path"}]}),
+        flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
