@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the compositor kernels (gaussianip_tpu_torch/csrc/composite.cu, K1
-forward and K2 backward) from the checkout, holds each against its plain
-PyTorch version at the stage-1 shapes (4 cameras, 512x512, capacity 524288,
-d_max=16), checks the tiled renderer against the dense reference
-compositor, then drives stage-1 training with stub guidance at the recipe's
-sizes (configs/exp.yaml: pts_num 100000, capacity 524288) and one densify
-and one prune at full size. Prints one line per phase, a `kernels` JSON
-line, the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Any failed phase exits non-zero; there is no
-CPU path.
+Builds the kernels from the checkout (gaussianip_tpu_torch/csrc/: K1 and
+K2, the compositor forward and backward, in composite.cu; K3, the 3x3 conv,
+in conv3x3.cu), holds K1/K2 against their plain PyTorch versions at the
+stage-1 shapes (4 cameras, 512x512, capacity 524288, d_max=16), checks the
+tiled renderer against the dense reference compositor, and drives stage-1
+training with stub guidance at the recipe's sizes (configs/exp.yaml:
+pts_num 100000, capacity 524288) with one densify and one prune at full
+size. Then it builds the recipe's guidance stack at full SD1.5 width with
+seeded random weights (system/pipeline.py:build_random_sd15_guidance),
+holds K3 against its plain version at every distinct conv shape of the
+guided step (batch 12, bf16) and times it beside F.conv2d, and drives
+stage-1 training with the real AHDS / ANPG guidance. Prints one line per
+phase, a `kernels` JSON line, the card's name and power limit, and as its
+last line {"ok": true, "device": {...}}. Any failed phase exits non-zero;
+there is no CPU path.
 """
 
 from __future__ import annotations
@@ -26,15 +31,31 @@ import numpy as np
 
 N_STEPS = 25
 WARMUP_STEPS = 5
+N_GUIDED = 6
+GUIDED_WARMUP = 2
 PTS_NUM = 100_000
 CAPACITY = 524_288
 RES = 512
 BATCH = 4
 D_MAX = 16
 SEED = 42
-# H100 SXM peaks (data sheet): f32 outside the tensor cores, HBM3 rate
+# H100 SXM peaks (data sheet): f32 outside the tensor cores, dense bf16 on
+# the tensor cores, HBM3 rate
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12
 PEAK_BYTES = 3.35e12
+# stride-1 Conv3x3 calls per guided step: 47 in the UNet (22 ResnetBlocks
+# x 2 + 3 Upsample), 20 in the ControlNet (10 ResnetBlocks x 2)
+K3_SITES = 67
+# K3 vs plain, both from the same bf16 inputs with f32 sums: the kernel
+# rounds its output to bf16 (2^-8 relative), sums in another order: worst
+# |diff| within 1e-2 of the plain output's largest |value|
+K3_REL_TOL = 1e-2
+# the tiny guidance stack at bf16 on the card against float32 on the CPU,
+# worst |diff| over the largest |value|: bf16 rounding through the stack's
+# depth costs ~2% (the same comparison with bf16 on the CPU), a layout or
+# indexing fault O(1)
+GUIDANCE_REF_TOL = 6e-2
 # f32 operations per (instance, pixel) pair walked, counted from
 # csrc/composite.cu: K1 power 11, alpha min 1, exp 1, T update 2, weight 1,
 # 5 accumulations 10 -> 26; K2 power 11, exp 1, min 1, 1-alpha 1, divide 1,
@@ -230,7 +251,7 @@ def check_oracle(gs, dev):
 
 
 def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
-                  n: int = 3):
+                  n: int = 3, tag: str = "profile"):
     """Device time by kernel over n steps (torch.profiler), and the device's
     busy share of the window's wall time."""
     import torch
@@ -257,7 +278,7 @@ def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
             (kernels if e.device_type == cuda else ops).append(
                 (dev_us(e) / n / 1e3, e.count // n, e.key))
     busy = sum(ms for ms, _, _ in kernels)
-    log("profile", steps=n, wall_ms_per_step=round(wall_ms, 3),
+    log(tag, steps=n, wall_ms_per_step=round(wall_ms, 3),
         device_ms_per_step=round(busy, 3),
         device_busy_share=round(busy / wall_ms, 4),
         kernel_launches_per_step=sum(c for _, c, _ in kernels))
@@ -265,6 +286,261 @@ def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
         for ms, count, name in sorted(rows, reverse=True)[:12]:
             print(f"  {title}: {ms:8.3f} ms/step x{count:<4d} {name[:100]}",
                   flush=True)
+
+
+def view_aux(b: int, dev):
+    """Camera metadata of b views around the body (the prompt table's
+    inputs)."""
+    import torch
+
+    zeros = torch.zeros(b, device=dev)
+    return {"all_vis": zeros, "elevation": zeros,
+            "azimuth": torch.linspace(-170, 170, b, device=dev),
+            "center": zeros, "camera_distances": zeros + 1.5}
+
+
+def conv_sites(guidance, gen, batch: int, res: int, dev="cuda"):
+    """Every stride-1 Conv3x3 call of one guidance call on `batch` views,
+    in call order, as (module, input shape), from forward pre-hooks."""
+    import torch
+    from gaussianip_tpu_torch.ops.conv3x3 import Conv3x3
+
+    sites, hooks = [], []
+    for model in (guidance.models.controlnet, guidance.models.unet):
+        for m in model.modules():
+            if isinstance(m, Conv3x3) and m.stride == 1:
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, args: sites.append((mod,
+                                                    tuple(args[0].shape)))))
+    try:
+        draws = guidance.sample_noise(gen, (batch, res, res, 3), dev)
+        rgb = torch.rand((batch, res, res, 3), generator=gen, device=dev)
+        with torch.no_grad():
+            guidance(0, draws, rgb, torch.zeros_like(rgb),
+                     view_aux(batch, dev))
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return sites
+
+
+def check_k3(sites, gen, dev="cuda"):
+    """K3 against its plain version at every distinct (Ci, Co, H, W) of the
+    guided step's conv sites, on the site's own weights and a N(0, 1) bf16
+    input at the site's batch; dx (the autograd backward, K3 on the rotated
+    weights) at one shape; each shape timed as the kernel, the plain
+    version and F.conv2d (channels_last bf16). Returns the per-step sums."""
+    import torch
+    import torch.nn.functional as F
+    from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
+    from gaussianip_tpu_torch.ops.conv3x3 import conv3x3
+
+    shapes = {}
+    for mod, shp in sites:
+        key = (shp[1], mod.weight.shape[0], shp[2], shp[3])
+        if key not in shapes:
+            shapes[key] = {"mod": mod, "batch": shp[0], "count": 0}
+        shapes[key]["count"] += 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
+           "bytes": 0.0, "launches": 0, "max_abs_err": 0.0}
+    rows = []
+    for (ci, co, h, w), e in sorted(shapes.items()):
+        b, mod = e["batch"], e["mod"]
+        x = torch.randn((b, ci, h, w), generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = mod.weight.detach().to(torch.bfloat16)
+        bias = mod.bias.detach().float().contiguous()
+        wp = k3.pack_weight(mod.weight.detach())
+        y = k3.conv3x3_cuda(x, wp, bias)
+        yp = k3.conv3x3_plain(x, wb, bias)
+        torch.cuda.synchronize()
+        err = float((y.float() - yp.float()).abs().max())
+        scale = float(yp.float().abs().max())
+        if not err <= K3_REL_TOL * scale:
+            raise AssertionError(f"K3 {ci}->{co} at {h}x{w}: max |diff| "
+                                 f"{err} vs {K3_REL_TOL} x {scale}")
+        ms = cuda_ms(lambda: k3.conv3x3_cuda(x, wp, bias), 10)
+        plain_ms = cuda_ms(lambda: k3.conv3x3_plain(x, wb, bias), 2, 1)
+        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, bias.to(torch.bfloat16),
+                                          padding=1), 10)
+        flop = 2.0 * b * h * w * ci * co * 9
+        nbytes = 2.0 * (b * h * w * (ci + co) + 9 * ci * co)
+        c = e["count"]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("flop", flop),
+                     ("bytes", nbytes)):
+            tot[k] += c * v
+        tot["launches"] += c
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        rows.append((ci, co, h, w, c, ms, plain_ms, lib_ms, flop))
+        log("k3", shape=f"{b}x{ci}x{h}x{w}->{co}", sites=c, ms=round(ms, 4),
+            plain_ms=round(plain_ms, 4), conv2d_ms=round(lib_ms, 4),
+            tflops=round(flop / ms / 1e9, 1), max_abs_err=err,
+            rel_err=err / scale)
+    if tot["launches"] != K3_SITES:
+        raise AssertionError(f"{tot['launches']} conv sites per guided "
+                             f"step, want {K3_SITES}")
+    # dx through the autograd Function at the largest shape by FLOP
+    ci, co, h, w, *_ = max(rows, key=lambda r: r[-1])
+    mod = shapes[(ci, co, h, w)]["mod"]
+    b = shapes[(ci, co, h, w)]["batch"]
+    x = torch.randn((b, ci, h, w), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    y = conv3x3(x, mod.weight.detach())
+    g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+    y.backward(g)
+    wt = mod.weight.detach().flip(2, 3).transpose(0, 1).to(torch.bfloat16)
+    dxp = k3.conv3x3_plain(g, wt)
+    torch.cuda.synchronize()
+    dx_err = float((x.grad.float() - dxp.float()).abs().max())
+    dx_scale = float(dxp.float().abs().max())
+    if not dx_err <= K3_REL_TOL * dx_scale:
+        raise AssertionError(f"K3 dx {ci}->{co} at {h}x{w}: {dx_err} vs "
+                             f"{K3_REL_TOL} x {dx_scale}")
+    t_ops = tot["flop"] / PEAK_BF16_OPS * 1e3
+    t_bytes = tot["bytes"] / PEAK_BYTES * 1e3
+    tot["bound_ms"] = max(t_ops, t_bytes)
+    tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log("k3:step", sites=tot["launches"], distinct_shapes=len(rows),
+        ms=round(tot["ms"], 3), plain_ms=round(tot["plain_ms"], 3),
+        conv2d_ms=round(tot["library_ms"], 3), tflop=tot["flop"] / 1e12,
+        gbytes=tot["bytes"] / 1e9, bound_ms=round(tot["bound_ms"], 4),
+        bound_by=tot["bound_by"], dx_shape=f"{b}x{co}x{h}x{w}->{ci}",
+        dx_max_abs_err=dx_err, dx_rel_err=dx_err / dx_scale)
+    return tot
+
+
+def check_guidance_reference(dev="cuda"):
+    """The tiny guidance stack (system/pipeline.py:build_stub_guidance_stack)
+    at bf16 on the card, every stride-1 conv through K3, against the same
+    weights at float32 on the CPU, the path the CPU tests hold against the
+    JAX package: the VAE latents of 4 renders at 64^2 and the gradient of a
+    random projection of them to the renders, and one ControlNet + UNet
+    pass on the 12-sample CFG batch."""
+    import torch
+    from gaussianip_tpu_torch.ops.conv3x3_cuda import conv3x3_cuda
+    from gaussianip_tpu_torch.system.pipeline import (
+        build_stub_guidance_stack)
+
+    args = ("a person", "bad quality", 64, SEED)
+    ref = build_stub_guidance_stack(*args, device="cpu")
+    card = build_stub_guidance_stack(*args, device=dev, dtype=torch.bfloat16)
+    for a, b in zip(card.models, ref.models):
+        a.load_state_dict(b.state_dict())
+    g = torch.Generator().manual_seed(SEED)
+    b = 4
+    rgb = torch.rand((b, 64, 64, 3), generator=g)
+    eps = torch.randn(ref.latent_shape(b), generator=g)
+    wz = torch.randn(ref.latent_shape(b), generator=g)
+    lat = torch.randn(ref.latent_shape(3 * b), generator=g)
+    ctrl = torch.rand((3 * b, 3, 64, 64), generator=g)
+    t = torch.randint(20, 800, (3 * b,), generator=g)
+    launches = conv3x3_cuda.launches
+    outs = []
+    for guid, d in ((ref, "cpu"), (card, dev)):
+        x = rgb.to(d, copy=True).requires_grad_(True)
+        z = guid.encode_images(x, eps.to(d))
+        (z * wz.to(d)).sum().backward()
+        with torch.no_grad():
+            e = guid.predict_noise(lat.to(d), ctrl.to(d), t.to(d),
+                                   guid._context(view_aux(b, d), b))
+        outs.append([v.detach().float().cpu().clone()
+                     for v in (z, x.grad, e)])
+    if conv3x3_cuda.launches == launches:
+        raise AssertionError("the card's tiny stack did not run K3")
+    errs = {}
+    for name, r, c in zip(("latents", "d_rgb", "denoise"), *outs):
+        errs[name] = float((c - r).abs().max() / r.abs().max())
+        if not errs[name] <= GUIDANCE_REF_TOL:
+            raise AssertionError(f"guidance {name}: card bf16 vs CPU f32 "
+                                 f"{errs[name]} > {GUIDANCE_REF_TOL}")
+    log("guidance_reference", rel_err=errs, tol=GUIDANCE_REF_TOL)
+
+
+def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
+    """CUDA-event times of the guidance's two layers at the guided step's
+    shapes: the VAE encode of `batch` renders, forward and backward to
+    the renders, and one ControlNet + UNet pass on the 3 x batch CFG
+    batch."""
+    import torch
+
+    rgb = torch.rand((batch, res, res, 3), generator=gen, device=dev,
+                     requires_grad=True)
+    draws = guidance.sample_noise(gen, rgb.shape, dev)
+    lat = torch.randn(guidance.latent_shape(3 * batch), generator=gen,
+                      device=dev)
+    ctrl = torch.rand((3 * batch, 3, res, res), generator=gen, device=dev)
+    t = torch.randint(20, 800, (3 * batch,), generator=gen, device=dev)
+    ctx = guidance._context(view_aux(batch, dev), batch)
+
+    def vae():
+        z = guidance.encode_images(rgb, draws["eps"])
+        torch.autograd.grad(z, rgb, torch.ones_like(z))
+
+    def denoise():
+        with torch.no_grad():
+            guidance.predict_noise(lat, ctrl, t, ctx)
+
+    return {"vae_fwd_bwd_ms": cuda_ms(vae, 3, 1),
+            "denoise_ms": cuda_ms(denoise, 3, 1)}
+
+
+def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
+                warmup: int, want: dict):
+    """Stage-1 steps at the recipe's sizes from the state gs0: finite
+    losses, parameters moved, and the launches of K1 ("fwd"), K2 ("bwd")
+    and K3 ("conv3x3") counted from 0 in this run alone equal to `want`.
+    Returns (state, config, launches, median ms per step after
+    `warmup`)."""
+    import torch
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
+    from gaussianip_tpu_torch.ops.conv3x3_cuda import conv3x3_cuda
+    from gaussianip_tpu_torch.render import composite_cuda as cc
+    from gaussianip_tpu_torch.system import stage1 as s1
+
+    cfg = s1.Stage1Config(render_height=RES, render_width=RES)
+    ts = s1.init_train_state(gs0)
+    x0 = {f: getattr(gs0, f).clone() for f in PARAM_FIELDS}
+    stamps, logs = [], []
+
+    def on_step(i, m):  # metrics arrive as host floats: the step has ended
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    cc.composite_fwd_cuda.launches = 0
+    cc.composite_bwd_cuda.launches = 0
+    conv3x3_cuda.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    ts = s1.train_stage1(ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance,
+                         sk.points3d, gen, n_steps=n_steps, log_every=1,
+                         log_fn=on_step)
+    torch.cuda.synchronize()
+    launches = {"fwd": cc.composite_fwd_cuda.launches,
+                "bwd": cc.composite_bwd_cuda.launches,
+                "conv3x3": conv3x3_cuda.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
+    med = float(np.median(step_ms[warmup:]))
+    moved = {f: float((getattr(ts.gaussians, f) - x0[f]).abs().max())
+             for f in ("xyz", "f_dc", "opacity", "scaling")}
+    losses = [m["loss"] for m in logs]
+    sds = [m["loss_sds"] for m in logs]
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(sds))):
+        raise AssertionError(f"{tag}: non-finite loss: {losses} {sds}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"{tag}: parameters did not move: {moved}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    log(tag, steps=n_steps, loss_first=losses[0], loss_last=losses[-1],
+        loss_sds=[round(x, 6) for x in sds], median_ms_per_step=med,
+        step_ms=[round(x, 3) for x in step_ms], peak_gib=round(peak_gib, 3),
+        launches=launches, moved=moved)
+    return ts, cfg, launches, med
 
 
 def main() -> int:
@@ -280,11 +556,11 @@ def main() -> int:
     from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
                                                    sample_train_batch)
     from gaussianip_tpu_torch.guidance.stub import make_stub_guidance
-    from gaussianip_tpu_torch.model.adam import AdamHyper
     from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
-    from gaussianip_tpu_torch.render import composite_cuda as cc
     from gaussianip_tpu_torch.render.render import RenderConfig
     from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.system.pipeline import (
+        build_random_sd15_guidance)
 
     dev = "cuda"
     # 1. device
@@ -297,10 +573,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _nvcc.build(["composite"])
+    _nvcc.build(["composite", "conv3x3"])
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _nvcc.ptxas_log.get("composite", "")
-            .splitlines() if "registers" in ln]
+    regs = [ln.strip() for name in ("composite", "conv3x3")
+            for ln in _nvcc.ptxas_log.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
 
     # 3. full-size scene
@@ -324,44 +601,12 @@ def main() -> int:
     check_oracle(gs0, dev)
 
     # 5. stage-1 steps at the recipe's sizes with stub guidance
-    cfg = s1.Stage1Config(render_height=RES, render_width=RES)
     tgt = np.zeros((256, 256, 3), np.float32)
     tgt[64:192, 96:160] = 0.8
     guidance = make_stub_guidance(target_rgb=tgt, noise_scale=0.01)
-    ts = s1.init_train_state(gs0)
-    x0 = {f: getattr(gs0, f).clone() for f in PARAM_FIELDS}
-    stamps, losses = [], []
-
-    def on_step(i, m):  # metrics arrive as host floats: the step has ended
-        stamps.append(time.perf_counter())
-        losses.append(m["loss"])
-
-    torch.cuda.reset_peak_memory_stats()
-    cc.composite_fwd_cuda.launches = 0
-    cc.composite_bwd_cuda.launches = 0
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    ts = s1.train_stage1(ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance,
-                         sk.points3d, gen, n_steps=N_STEPS, log_every=1,
-                         log_fn=on_step)
-    torch.cuda.synchronize()
-    launches = {"fwd": cc.composite_fwd_cuda.launches,
-                "bwd": cc.composite_bwd_cuda.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
-    med = float(np.median(step_ms[WARMUP_STEPS:]))
-    moved = {f: float((getattr(ts.gaussians, f) - x0[f]).abs().max())
-             for f in ("xyz", "f_dc", "opacity", "scaling")}
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not all(v > 0 for v in moved.values()):
-        raise AssertionError(f"parameters did not move: {moved}")
-    if launches != {"fwd": N_STEPS, "bwd": N_STEPS}:
-        raise AssertionError(f"K1/K2 launches {launches} != {N_STEPS} each")
-    log("stage1", steps=N_STEPS, loss_first=losses[0], loss_last=losses[-1],
-        median_ms_per_step=med, step_ms=[round(x, 3) for x in step_ms],
-        peak_gib=round(peak_gib, 3), launches=launches, moved=moved)
-
+    ts, cfg, launches, _ = train_phase(
+        "stage1", gs0, sk, guidance, gen, cam_cfg, rcfg, N_STEPS,
+        WARMUP_STEPS, {"fwd": N_STEPS, "bwd": N_STEPS, "conv3x3": 0})
     profile_steps(ts, cfg, cam_cfg, rcfg, guidance, sk.points3d, gen)
 
     densify, prune = s1.make_densify_fns(cfg)
@@ -385,7 +630,30 @@ def main() -> int:
         n_after_prune=ts_p.gaussians.n_active, densify_s=round(t_d, 4),
         prune_s=round(t_p, 4))
 
-    # 6. kernels line
+    # 6. the real guidance: the tiny stack on the card against the CPU, then
+    # at full width K3 at every conv shape of the guided step and guided
+    # stage-1 steps at the recipe's sizes
+    check_guidance_reference(dev)
+    t0 = time.perf_counter()
+    guidance = build_random_sd15_guidance(seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log("guidance_stack", seconds=round(time.perf_counter() - t0, 2),
+        params_m={k: round(sum(p.numel() for p in m.parameters()) / 1e6, 3)
+                  for k, m in guidance.models._asdict().items()})
+    k3 = check_k3(conv_sites(guidance, gen, BATCH, RES), gen)
+    ts_g, cfg_g, launches_g, med_g = train_phase(
+        "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
+        GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
+                        "conv3x3": K3_SITES * N_GUIDED})
+    layers = guided_layers(guidance, gen, BATCH, RES)
+    log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
+        rest_of_step_ms=round(med_g - sum(layers.values()), 3))
+    profile_steps(ts_g, cfg_g, cam_cfg, rcfg, guidance, sk.points3d, gen,
+                  n=2, tag="profile_guided")
+
+    # 7. kernels line: K1/K2 timed at the stub-guided path's shapes,
+    # launches on the guided path (per path in launches_by_path); K3 summed
+    # over the guided step's 67 launches
     def bound(kind_):
         t_bytes = info[f"{kind_}_bytes"] / PEAK_BYTES * 1e3
         t_ops = info["pairs"] * OPS_PER_PAIR[kind_] / PEAK_F32_OPS * 1e3
@@ -402,14 +670,24 @@ def main() -> int:
         b_ms, b_by = bound(kind_)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[kind_], "max_abs_err": info[err],
+            "launches": launches_g[kind_], "launches_by_path": {
+                "stage1_stub": launches[kind_],
+                "stage1_guided": launches_g[kind_]},
+            "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    print(json.dumps({"kernels": kernels, "not_ported": [{
-        "name": "K3 conv3x3",
+    kernels.append({
+        "name": "K3 conv3x3", "route": "cuda",
+        "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",
         "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
-        "reason": "diffusion stack is not on this slice's path"}]}),
-        flush=True)
+        "launches": launches_g["conv3x3"], "launches_by_path": {
+            "stage1_stub": launches["conv3x3"],
+            "stage1_guided": launches_g["conv3x3"]},
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "per": f"guided step ({K3_SITES} launches)"})
+    print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,8 @@ argument: the train step draws it from its generator with `sample_noise`.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from ..ops.resize import linear_resize
 
 
 class StubGuidance:
@@ -24,13 +25,8 @@ class StubGuidance:
     def _target(self, h: int, w: int, device):
         tgt = torch.as_tensor(self.target_rgb, dtype=torch.float32,
                               device=device)
-        if tgt.shape[:2] != (h, w):
-            # bilinear with half-pixel centres, antialiased when shrinking
-            # (the same triangle filter as jax.image.resize "linear")
-            tgt = F.interpolate(tgt.permute(2, 0, 1)[None], size=(h, w),
-                                mode="bilinear", align_corners=False,
-                                antialias=True)[0].permute(1, 2, 0)
-        return tgt[None]
+        return linear_resize(tgt.permute(2, 0, 1)[None], h, w).permute(
+            0, 2, 3, 1)
 
     def __call__(self, step, noise, rgb, control_img, view_aux):
         b = rgb.shape[0]

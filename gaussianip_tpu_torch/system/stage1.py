@@ -4,8 +4,8 @@ gaussianip_tpu/system/stage1.py).
 One step: sample cameras, draw the pose maps, render, guidance loss +
 sparsity/opaque regularizers, backward (autograd; the compositor's backward
 is K2), viewspace-gradient densify stats, Adam. Densify / prune run at
-schedule boundaries. The step draws its camera batch and guidance noise
-from a torch.Generator and hands them to the inner step
+schedule boundaries. The step draws its camera batch and the guidance's
+random draws from a torch.Generator and hands them to the inner step
 (`make_inner_step`), which a test can call with injected draws.
 
 Losses: loss_sds * lambda_sds + mean(sqrt(norm_depth^2 + 0.01)) *
@@ -94,12 +94,13 @@ def train_state_from_numpy(d: dict, device="cuda") -> TrainState:
 def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                     render_cfg: RenderConfig, adam_hyper: AdamHyper,
                     guidance: Callable, skel_points3d, hand_centers=None):
-    """`inner(ts, batch, guidance_noise) -> (ts, metrics)`: one step on a
-    given camera batch and guidance noise. skel_points3d: [18, 3] world
+    """`inner(ts, batch, draws) -> (ts, metrics)`: one step on a given
+    camera batch and the guidance's draws (whatever its `sample_noise`
+    returns, passed through unread). skel_points3d: [18, 3] world
     keypoints; hand_centers: [2, 3] wrists (disable_hand_densification)."""
     h, w = cfg.render_height, cfg.render_width
 
-    def inner(ts: TrainState, batch, guidance_noise):
+    def inner(ts: TrainState, batch, draws):
         g = ts.gaussians
         dev = g.device
         bg = torch.full((3,), 1.0 if cfg.bg_white else 0.0, device=dev)
@@ -117,7 +118,7 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                              device=dev, requires_grad=True)
         out = render(g.replace(**leaves), cams, bg, render_cfg,
                      mean2d_offset=offset)
-        gout = guidance(ts.step, guidance_noise, out.rgb, pose_images, {
+        gout = guidance(ts.step, draws, out.rgb, pose_images, {
             "all_vis": all_vis,
             "elevation": batch.elevation_deg,
             "azimuth": batch.azimuth_deg,
@@ -168,10 +169,12 @@ def make_train_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                     render_cfg: RenderConfig, adam_hyper: AdamHyper,
                     guidance: Callable, skel_points3d, hand_centers=None):
     """`step(ts, generator) -> (ts, metrics)`: draws the camera batch, then
-    the guidance noise, from `generator` (on the state's device) and runs
-    the inner step. `guidance(step, noise, rgb, control, aux)` must be
-    differentiable in rgb and offer `sample_noise(generator, shape,
-    device)`."""
+    the guidance's draws, from `generator` (on the state's device) and runs
+    the inner step. The guidance offers `sample_noise(generator, shape,
+    device)`, with `shape` the render's [B, H, W, 3]; what it returns is
+    opaque to the step (one tensor for the stub guidance, a dict for
+    AHDSGuidance) and goes back as `guidance(step, draws, rgb, control,
+    aux)`, which must be differentiable in rgb."""
     inner = make_inner_step(cfg, cam_cfg, render_cfg, adam_hyper, guidance,
                             skel_points3d, hand_centers)
     shape = (cam_cfg.batch_size, cfg.render_height, cfg.render_width, 3)
@@ -179,8 +182,8 @@ def make_train_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
     def step(ts: TrainState, generator: torch.Generator):
         dev = ts.gaussians.device
         batch = sample_train_batch(cam_cfg, generator, ts.step, dev)
-        noise = guidance.sample_noise(generator, shape, dev)
-        return inner(ts, batch, noise)
+        draws = guidance.sample_noise(generator, shape, dev)
+        return inner(ts, batch, draws)
 
     return step
 

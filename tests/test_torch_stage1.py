@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import PARAM_FIELDS, jax_state_numpy, n, t
+from _torch_parity import (PARAM_FIELDS, n, stage1_scene, t,
+                           train_state_numpy)
 
 torch.set_num_threads(1)
 H = W = 32
@@ -22,35 +23,9 @@ B = 2
 MOM_TOL = {"m": 1e-2, "v": 2e-2}
 
 
-def _train_state_numpy(jts) -> dict:
-    return {
-        "gaussians": jax_state_numpy(jts.gaussians),
-        "m": {f: np.asarray(jts.opt.m[f]) for f in PARAM_FIELDS},
-        "v": {f: np.asarray(jts.opt.v[f]) for f in PARAM_FIELDS},
-        "adam_count": int(jts.opt.count),
-        "stats": {f: np.asarray(getattr(jts.stats, f))
-                  for f in ("xyz_grad_accum", "denom", "max_radii2d")},
-        "step": int(jts.step),
-    }
-
-
 @pytest.fixture(scope="module")
 def scene():
-    from gaussianip_tpu.human.skeleton import Skeleton
-    from gaussianip_tpu.human.smplx_jax import make_test_model
-    from gaussianip_tpu.model.gaussians import create_from_pcd
-    from gaussianip_tpu.ops.knn import mean_dist2_3nn
-    from gaussianip_tpu.system.stage1 import init_train_state
-
-    sk = Skeleton(_test_model=make_test_model(np.random.default_rng(0),
-                                              n_verts=300, n_faces=200))
-    sk.forward_smplx()
-    sk.scale(-10)
-    pts = sk.sample_smplx_points(400)
-    d2 = mean_dist2_3nn(jnp.asarray(pts), block=128)
-    cols = np.random.default_rng(1).uniform(0, 1, (400, 3)).astype(np.float32)
-    gs = create_from_pcd(pts, cols, 1024, d2)
-    return sk, init_train_state(gs)
+    return stage1_scene()
 
 
 def _configs():
@@ -103,7 +78,7 @@ def test_three_steps_match(scene):
                   sk.points3d)
     inner = make_inner_step(s1, cam, rcfg, adam, make_stub_guidance(tgt, 0.01),
                             sk.points3d)
-    ts = train_state_from_numpy(_train_state_numpy(jts), "cpu")
+    ts = train_state_from_numpy(train_state_numpy(jts), "cpu")
     lrs = field_lrs(jadam, 0)
     for i in range(3):
         key = jax.random.PRNGKey(10 + i)
@@ -187,7 +162,7 @@ def test_densify_and_prune_match(scene, rng):
     noise = jax.random.normal(key, (2, jts.gaussians.capacity, 3))
 
     from gaussianip_tpu_torch.model.densify import densify_and_prune
-    ts = train_state_from_numpy(_train_state_numpy(jts), "cpu")
+    ts = train_state_from_numpy(train_state_numpy(jts), "cpu")
     g, opt, stats, dropped = densify_and_prune(
         ts.gaussians, ts.opt, ts.stats, t(noise), max_grad=s1.max_grad,
         min_opacity=s1.densify_prune_min_opacity, extent=s1.cameras_extent,
@@ -198,7 +173,7 @@ def test_densify_and_prune_match(scene, rng):
     # child positions go through a rotation einsum: f32 rounding
     _compare_states(got, ref, atol=1e-6)
 
-    ts2 = train_state_from_numpy(_train_state_numpy(jts), "cpu")
+    ts2 = train_state_from_numpy(train_state_numpy(jts), "cpu")
     got_p = prune(ts2)
     ref_p = jprune(jts)
     assert got_p.gaussians.n_active < 400
@@ -230,7 +205,7 @@ def test_train_stage1_runs(scene):
     s1 = Stage1Config(render_height=H, render_width=W,
                       densify_prune_start_step=0, densify_prune_interval=2,
                       densify_prune_world_size_threshold=2.0)
-    ts = train_state_from_numpy(_train_state_numpy(jts), "cpu")
+    ts = train_state_from_numpy(train_state_numpy(jts), "cpu")
     gen = torch.Generator().manual_seed(0)
     logs = []
     ts = train_stage1(ts, s1, cam, rcfg, adam,
