@@ -12,11 +12,13 @@ pts_num 100000, capacity 524288) with one densify and one prune at full
 size. Then it builds the recipe's guidance stack at full SD1.5 width with
 seeded random weights (system/pipeline.py:build_random_sd15_guidance),
 holds K3 against its plain version at every distinct conv shape of the
-guided step (batch 12, bf16) and times it beside F.conv2d, and drives
-stage-1 training with the real AHDS / ANPG guidance. Prints one line per
-phase, a `kernels` JSON line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. Any failed phase exits non-zero;
-there is no CPU path.
+guided step (batch 12, bf16) through the variant its gate names (the
+Hopper wgmma + TMA one at every SD1.5 shape) and times it beside the
+general variant and F.conv2d, and drives stage-1 training with the real
+AHDS / ANPG guidance; the tiny test stack on the card runs the general
+variant. Prints one line per phase, a `kernels` JSON line, the card's name
+and power limit, and as its last line {"ok": true, "device": {...}}. Any
+failed phase exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -89,7 +91,23 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def ptxas_entries(log: str):
+    """(entry function, its `Used ... registers` and spill lines) per
+    kernel in an `nvcc -Xptxas -v` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2, enqueue: bool = False):
+    """CUDA-event ms per call of fn over `iters` calls; with `enqueue`,
+    also the host's ms per call to return from fn (its enqueue time: where
+    it is close to the event time, fn is bound by the host, not the
+    device)."""
     import torch
 
     for _ in range(warmup):
@@ -97,11 +115,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, enqueue_ms) if enqueue else ms
+
+
+def device_ms(fn) -> float:
+    """Device time of the kernels that one call of fn launches, summed
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum((getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages() if e.device_type == cuda) / 1e3
 
 
 def build_scene(dev):
@@ -328,9 +366,12 @@ def conv_sites(guidance, gen, batch: int, res: int, dev="cuda"):
 def check_k3(sites, gen, dev="cuda"):
     """K3 against its plain version at every distinct (Ci, Co, H, W) of the
     guided step's conv sites, on the site's own weights and a N(0, 1) bf16
-    input at the site's batch; dx (the autograd backward, K3 on the rotated
-    weights) at one shape; each shape timed as the kernel, the plain
-    version and F.conv2d (channels_last bf16). Returns the per-step sums."""
+    input at the site's batch, through the variant the gate names; dx (the
+    autograd backward, K3 on the rotated weights) at the largest shape.
+    Each shape is timed, in turns and twice, as the gated variant (`ms`),
+    the general variant, the first port's kernel (`prev_ms`), and F.conv2d
+    (channels_last bf16), then once as the plain version. Returns the
+    per-step sums."""
     import torch
     import torch.nn.functional as F
     from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
@@ -342,8 +383,9 @@ def check_k3(sites, gen, dev="cuda"):
         if key not in shapes:
             shapes[key] = {"mod": mod, "batch": shp[0], "count": 0}
         shapes[key]["count"] += 1
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
-           "bytes": 0.0, "launches": 0, "max_abs_err": 0.0}
+    tot = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "flop": 0.0, "bytes": 0.0, "launches": 0, "max_abs_err": 0.0,
+           "ms_8x8": 0.0, "prev_ms_8x8": 0.0, "launches_8x8": 0}
     rows = []
     for (ci, co, h, w), e in sorted(shapes.items()):
         b, mod = e["batch"], e["mod"]
@@ -351,8 +393,15 @@ def check_k3(sites, gen, dev="cuda"):
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = mod.weight.detach().to(torch.bfloat16)
         bias = mod.bias.detach().float().contiguous()
+        variant = k3.k3_variant(ci, co)
         wp = k3.pack_weight(mod.weight.detach())
+        wg = k3.pack_weight(mod.weight.detach(), variant="general")
+        counter = getattr(k3, f"conv3x3_{variant}")
+        before = counter.launches
         y = k3.conv3x3_cuda(x, wp, bias)
+        if counter.launches != before + 1:
+            raise AssertionError(f"K3 {ci}->{co}: the {variant} variant "
+                                 f"did not launch")
         yp = k3.conv3x3_plain(x, wb, bias)
         torch.cuda.synchronize()
         err = float((y.float() - yp.float()).abs().max())
@@ -360,24 +409,39 @@ def check_k3(sites, gen, dev="cuda"):
         if not err <= K3_REL_TOL * scale:
             raise AssertionError(f"K3 {ci}->{co} at {h}x{w}: max |diff| "
                                  f"{err} vs {K3_REL_TOL} x {scale}")
-        ms = cuda_ms(lambda: k3.conv3x3_cuda(x, wp, bias), 10)
-        plain_ms = cuda_ms(lambda: k3.conv3x3_plain(x, wb, bias), 2, 1)
-        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, bias.to(torch.bfloat16),
-                                          padding=1), 10)
+        runs = {"ms": lambda: k3.conv3x3_cuda(x, wp, bias),
+                "prev_ms": lambda: k3.conv3x3_general(x, wg, bias),
+                "library_ms": lambda: F.conv2d(
+                    x, wb, bias.to(torch.bfloat16), padding=1)}
+        times = {k: [] for k in runs}
+        for _ in range(2):
+            for k, fn in runs.items():
+                times[k].append(cuda_ms(fn, 10))
+        t = {k: float(np.mean(v)) for k, v in times.items()}
+        t["plain_ms"] = cuda_ms(lambda: k3.conv3x3_plain(x, wb, bias), 2, 1)
         flop = 2.0 * b * h * w * ci * co * 9
         nbytes = 2.0 * (b * h * w * (ci + co) + 9 * ci * co)
+        bound_ms = max(flop / PEAK_BF16_OPS, nbytes / PEAK_BYTES) * 1e3
         c = e["count"]
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("flop", flop),
-                     ("bytes", nbytes)):
+        for k, v in (*t.items(), ("flop", flop), ("bytes", nbytes)):
             tot[k] += c * v
+        if h == 8:
+            tot["ms_8x8"] += c * t["ms"]
+            tot["prev_ms_8x8"] += c * t["prev_ms"]
+            tot["launches_8x8"] += c
         tot["launches"] += c
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        rows.append((ci, co, h, w, c, ms, plain_ms, lib_ms, flop))
-        log("k3", shape=f"{b}x{ci}x{h}x{w}->{co}", sites=c, ms=round(ms, 4),
-            plain_ms=round(plain_ms, 4), conv2d_ms=round(lib_ms, 4),
-            tflops=round(flop / ms / 1e9, 1), max_abs_err=err,
-            rel_err=err / scale)
+        rows.append((ci, co, h, w, c, flop))
+        plan = k3.k3_plan(b, h, w, ci, co) if variant == "hopper" else None
+        log("k3", shape=f"{b}x{ci}x{h}x{w}->{co}", sites=c, variant=variant,
+            plan=plan and {"bn": plan.bn, "splits": plan.splits,
+                           "ctas": plan.units},
+            ms=round(t["ms"], 4), prev_ms=round(t["prev_ms"], 4),
+            conv2d_ms=round(t["library_ms"], 4),
+            plain_ms=round(t["plain_ms"], 4), bound_ms=round(bound_ms, 4),
+            tflops=round(flop / t["ms"] / 1e9, 1),
+            prev_tflops=round(flop / t["prev_ms"] / 1e9, 1),
+            max_abs_err=err, rel_err=err / scale)
     if tot["launches"] != K3_SITES:
         raise AssertionError(f"{tot['launches']} conv sites per guided "
                              f"step, want {K3_SITES}")
@@ -388,27 +452,59 @@ def check_k3(sites, gen, dev="cuda"):
     x = torch.randn((b, ci, h, w), generator=gen, device=dev).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     x.requires_grad_(True)
+    before = {v: getattr(k3, f"conv3x3_{v}").launches
+              for v in ("hopper", "general")}
     y = conv3x3(x, mod.weight.detach())
     g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
     y.backward(g)
     wt = mod.weight.detach().flip(2, 3).transpose(0, 1).to(torch.bfloat16)
     dxp = k3.conv3x3_plain(g, wt)
     torch.cuda.synchronize()
+    dx_variant = k3.k3_variant(co, ci)
+    dx_launches = {v: getattr(k3, f"conv3x3_{v}").launches - n
+                   for v, n in before.items()}
+    if dx_launches[dx_variant] != 1 + (k3.k3_variant(ci, co) == dx_variant):
+        raise AssertionError(f"K3 dx did not run the {dx_variant} variant: "
+                             f"{dx_launches}")
     dx_err = float((x.grad.float() - dxp.float()).abs().max())
     dx_scale = float(dxp.float().abs().max())
     if not dx_err <= K3_REL_TOL * dx_scale:
         raise AssertionError(f"K3 dx {ci}->{co} at {h}x{w}: {dx_err} vs "
                              f"{K3_REL_TOL} x {dx_scale}")
+    # the host's cost per call of each path into the conv, at the smallest
+    # shape (enqueue time of 100 calls, the device idle behind them)
+    key = min(shapes, key=lambda k: k[0] * k[1] * k[2] * k[3])
+    small = shapes[key]
+    xs = torch.randn((small["batch"], key[0], key[2], key[3]), generator=gen,
+                     device=dev).to(torch.bfloat16).contiguous(
+                         memory_format=torch.channels_last)
+    wf, bf = small["mod"].weight.detach(), small["mod"].bias.detach()
+    wp, wg = k3.pack_weight(wf), k3.pack_weight(wf, variant="general")
+    wb, bias = wf.to(torch.bfloat16), bf.float()
+    host = {name: cuda_ms(fn, 100, 5, enqueue=True)[1] * 1e3 for name, fn in (
+        ("conv3x3_cuda", lambda: k3.conv3x3_cuda(xs, wp, bias)),
+        ("conv3x3_general", lambda: k3.conv3x3_general(xs, wg, bias)),
+        ("conv3x3_same", lambda: k3.conv3x3_same(xs, wf, bf)),
+        ("conv2d", lambda: F.conv2d(xs, wb, bias.to(torch.bfloat16),
+                                    padding=1)))}
+    log("k3:host", shape=f"{small['batch']}x{key[0]}x{key[2]}x{key[3]}->"
+        f"{key[1]}", us_per_call={k: round(v, 2) for k, v in host.items()})
     t_ops = tot["flop"] / PEAK_BF16_OPS * 1e3
     t_bytes = tot["bytes"] / PEAK_BYTES * 1e3
     tot["bound_ms"] = max(t_ops, t_bytes)
     tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     log("k3:step", sites=tot["launches"], distinct_shapes=len(rows),
-        ms=round(tot["ms"], 3), plain_ms=round(tot["plain_ms"], 3),
-        conv2d_ms=round(tot["library_ms"], 3), tflop=tot["flop"] / 1e12,
+        ms=round(tot["ms"], 3), prev_ms=round(tot["prev_ms"], 3),
+        conv2d_ms=round(tot["library_ms"], 3),
+        plain_ms=round(tot["plain_ms"], 3),
+        ms_over_prev=round(tot["ms"] / tot["prev_ms"], 4),
+        ms_over_conv2d=round(tot["ms"] / tot["library_ms"], 4),
+        launches_8x8=tot["launches_8x8"], ms_8x8=round(tot["ms_8x8"], 3),
+        prev_ms_8x8=round(tot["prev_ms_8x8"], 3), tflop=tot["flop"] / 1e12,
         gbytes=tot["bytes"] / 1e9, bound_ms=round(tot["bound_ms"], 4),
         bound_by=tot["bound_by"], dx_shape=f"{b}x{co}x{h}x{w}->{ci}",
-        dx_max_abs_err=dx_err, dx_rel_err=dx_err / dx_scale)
+        dx_variant=dx_variant, dx_max_abs_err=dx_err,
+        dx_rel_err=dx_err / dx_scale)
     return tot
 
 
@@ -420,7 +516,8 @@ def check_guidance_reference(dev="cuda"):
     random projection of them to the renders, and one ControlNet + UNet
     pass on the 12-sample CFG batch."""
     import torch
-    from gaussianip_tpu_torch.ops.conv3x3_cuda import conv3x3_cuda
+    from gaussianip_tpu_torch.ops.conv3x3_cuda import (conv3x3_cuda,
+                                                       conv3x3_general)
     from gaussianip_tpu_torch.system.pipeline import (
         build_stub_guidance_stack)
 
@@ -438,6 +535,7 @@ def check_guidance_reference(dev="cuda"):
     ctrl = torch.rand((3 * b, 3, 64, 64), generator=g)
     t = torch.randint(20, 800, (3 * b,), generator=g)
     launches = conv3x3_cuda.launches
+    general = conv3x3_general.launches
     outs = []
     for guid, d in ((ref, "cpu"), (card, dev)):
         x = rgb.to(d, copy=True).requires_grad_(True)
@@ -450,20 +548,26 @@ def check_guidance_reference(dev="cuda"):
                      for v in (z, x.grad, e)])
     if conv3x3_cuda.launches == launches:
         raise AssertionError("the card's tiny stack did not run K3")
+    if conv3x3_general.launches == general:
+        raise AssertionError("the card's tiny stack did not run K3's "
+                             "general variant")
     errs = {}
     for name, r, c in zip(("latents", "d_rgb", "denoise"), *outs):
         errs[name] = float((c - r).abs().max() / r.abs().max())
         if not errs[name] <= GUIDANCE_REF_TOL:
             raise AssertionError(f"guidance {name}: card bf16 vs CPU f32 "
                                  f"{errs[name]} > {GUIDANCE_REF_TOL}")
-    log("guidance_reference", rel_err=errs, tol=GUIDANCE_REF_TOL)
+    log("guidance_reference", rel_err=errs, tol=GUIDANCE_REF_TOL,
+        k3_general_launches=conv3x3_general.launches - general,
+        k3_launches=conv3x3_cuda.launches - launches)
 
 
 def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
     """CUDA-event times of the guidance's two layers at the guided step's
     shapes: the VAE encode of `batch` renders, forward and backward to
     the renders, and one ControlNet + UNet pass on the 3 x batch CFG
-    batch."""
+    batch; beside each, the host's enqueue time and the device time of its
+    kernels (profiler)."""
     import torch
 
     rgb = torch.rand((batch, res, res, 3), generator=gen, device=dev,
@@ -483,24 +587,32 @@ def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
         with torch.no_grad():
             guidance.predict_noise(lat, ctrl, t, ctx)
 
-    return {"vae_fwd_bwd_ms": cuda_ms(vae, 3, 1),
-            "denoise_ms": cuda_ms(denoise, 3, 1)}
+    out = {}
+    for name, fn in (("vae_fwd_bwd", vae), ("denoise", denoise)):
+        out[f"{name}_ms"], out[f"{name}_enqueue_ms"] = cuda_ms(
+            fn, 3, 1, enqueue=True)
+        out[f"{name}_device_ms"] = device_ms(fn)
+    return out
 
 
 def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
                 warmup: int, want: dict):
     """Stage-1 steps at the recipe's sizes from the state gs0: finite
     losses, parameters moved, and the launches of K1 ("fwd"), K2 ("bwd")
-    and K3 ("conv3x3") counted from 0 in this run alone equal to `want`.
+    and K3 ("conv3x3", and per variant "conv3x3_hopper",
+    "conv3x3_general") counted from 0 in this run alone equal to `want`.
     Returns (state, config, launches, median ms per step after
     `warmup`)."""
     import torch
     from gaussianip_tpu_torch.model.adam import AdamHyper
     from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
-    from gaussianip_tpu_torch.ops.conv3x3_cuda import conv3x3_cuda
+    from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
     from gaussianip_tpu_torch.render import composite_cuda as cc
     from gaussianip_tpu_torch.system import stage1 as s1
 
+    k3_counters = {"conv3x3": k3.conv3x3_cuda,
+                   "conv3x3_hopper": k3.conv3x3_hopper,
+                   "conv3x3_general": k3.conv3x3_general}
     cfg = s1.Stage1Config(render_height=RES, render_width=RES)
     ts = s1.init_train_state(gs0)
     x0 = {f: getattr(gs0, f).clone() for f in PARAM_FIELDS}
@@ -513,7 +625,8 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
     torch.cuda.reset_peak_memory_stats()
     cc.composite_fwd_cuda.launches = 0
     cc.composite_bwd_cuda.launches = 0
-    conv3x3_cuda.launches = 0
+    for fn in k3_counters.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     ts = s1.train_stage1(ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance,
@@ -522,7 +635,7 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
     torch.cuda.synchronize()
     launches = {"fwd": cc.composite_fwd_cuda.launches,
                 "bwd": cc.composite_bwd_cuda.launches,
-                "conv3x3": conv3x3_cuda.launches}
+                **{k: fn.launches for k, fn in k3_counters.items()}}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
     med = float(np.median(step_ms[warmup:]))
@@ -579,6 +692,13 @@ def main() -> int:
             for ln in _nvcc.ptxas_log.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
+    from gaussianip_tpu_torch.ops.conv3x3_cuda import hopper_smem_bytes
+    for name, lines in ptxas_entries(_nvcc.ptxas_log.get("conv3x3",
+                                                         "")).items():
+        if "conv3x3_wgmma_kernel" in name:
+            bn = int(name.split("ILi")[1].split("E")[0])
+            log("build:k3_hopper", bn=bn, ptxas=lines,
+                dynamic_smem_bytes=hopper_smem_bytes(bn))
 
     # 3. full-size scene
     t0 = time.perf_counter()
@@ -606,7 +726,8 @@ def main() -> int:
     guidance = make_stub_guidance(target_rgb=tgt, noise_scale=0.01)
     ts, cfg, launches, _ = train_phase(
         "stage1", gs0, sk, guidance, gen, cam_cfg, rcfg, N_STEPS,
-        WARMUP_STEPS, {"fwd": N_STEPS, "bwd": N_STEPS, "conv3x3": 0})
+        WARMUP_STEPS, {"fwd": N_STEPS, "bwd": N_STEPS, "conv3x3": 0,
+                       "conv3x3_hopper": 0, "conv3x3_general": 0})
     profile_steps(ts, cfg, cam_cfg, rcfg, guidance, sk.points3d, gen)
 
     densify, prune = s1.make_densify_fns(cfg)
@@ -644,10 +765,13 @@ def main() -> int:
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
         GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
-                        "conv3x3": K3_SITES * N_GUIDED})
+                        "conv3x3": K3_SITES * N_GUIDED,
+                        "conv3x3_hopper": K3_SITES * N_GUIDED,
+                        "conv3x3_general": 0})
     layers = guided_layers(guidance, gen, BATCH, RES)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
-        rest_of_step_ms=round(med_g - sum(layers.values()), 3))
+        rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
+                              - layers["denoise_ms"], 3))
     profile_steps(ts_g, cfg_g, cam_cfg, rcfg, guidance, sk.points3d, gen,
                   n=2, tag="profile_guided")
 
@@ -683,9 +807,13 @@ def main() -> int:
         "launches": launches_g["conv3x3"], "launches_by_path": {
             "stage1_stub": launches["conv3x3"],
             "stage1_guided": launches_g["conv3x3"]},
+        "launches_by_variant": {
+            "hopper": launches_g["conv3x3_hopper"],
+            "general": launches_g["conv3x3_general"]},
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "prev_ms": k3["prev_ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
         "per": f"guided step ({K3_SITES} launches)"})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)

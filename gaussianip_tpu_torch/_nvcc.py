@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles on first use into
-`gaussianip_tpu_torch/build/lib<name>-<hash>.so` (the hash covers the source
-and the flags, so an edited source rebuilds), with a plain C interface:
+`gaussianip_tpu_torch/build/lib<name>-<hash>.so` (the hash covers the
+source, every `csrc/*.cuh` header and all the flags, so an edited source,
+header or flag rebuilds), with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 Nothing here runs at import time.
 """
@@ -37,8 +38,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(b"\0" + f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
