@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (gaussianip_tpu_torch/csrc/: K1 and
-K2, the compositor forward and backward, in composite.cu; K3, the 3x3 conv,
-in conv3x3.cu), holds K1/K2 against their plain PyTorch versions at the
-stage-1 shapes (4 cameras, 512x512, capacity 524288, d_max=16), checks the
-tiled renderer against the dense reference compositor, and drives stage-1
+K2, the compositor forward and backward with the per-gaussian gradient
+reduction fused in, in composite.cu; K3, the 3x3 conv, in conv3x3.cu),
+holds K1/K2 against their plain PyTorch versions at the stage-1 shapes (4
+cameras, 512x512, capacity 524288, d_max=16) and times them, prints the
+tiles' segment lengths, checks the tiled renderer against the
+dense reference compositor, and drives stage-1
 training with stub guidance at the recipe's sizes (configs/exp.yaml:
 pts_num 100000, capacity 524288) with one densify and one prune at full
 size. Then it builds the recipe's guidance stack at full SD1.5 width with
@@ -58,19 +60,39 @@ K3_REL_TOL = 1e-2
 # depth costs ~2% (the same comparison with bf16 on the CPU), a layout or
 # indexing fault O(1)
 GUIDANCE_REF_TOL = 6e-2
-# f32 operations per (instance, pixel) pair walked, counted from
-# csrc/composite.cu: K1 power 11, alpha min 1, exp 1, T update 2, weight 1,
-# 5 accumulations 10 -> 26; K2 power 11, exp 1, min 1, 1-alpha 1, divide 1,
-# weight 1, feat.gout 9, dalpha 4, dpower 1, suffix 2, 11 gradient terms 11,
-# their tile reduction 11 -> 54
-OPS_PER_PAIR = {"fwd": 26, "bwd": 54}
-BYTES_PER_INSTANCE = 64  # one [16] f32 column of data (or dgrad)
+# f32 operations (an FMA counts 2) per (instance, pixel) pair up to the
+# pixel's last contributor, as csrc/composite.cu computes the function with
+# K1 at 2 and K2 at 4 pixels per thread. K1: the power from the column
+# terms 4 (2 FMA), the column terms u, v 6 per thread and instance (3 FMA)
+# over 2 pixels 3, exp 1, min 1, 1 - alpha 1, T update 1, weight 1, 5
+# accumulations 10 -> 22. K2: power 4, column terms 6 / 4 = 1.5, exp 1,
+# min 1, 1 - alpha 1, reciprocal 1, T 1, weight 1, feat . gout 9, dpower 4,
+# r update 2, the sums of dpower, dpower y, dpower y^2 5, the 4 colour and
+# depth terms 8, and per thread and instance the six coefficient terms
+# from those sums 3 and the transposed reduction's adds 31 / 3 over 4
+# pixels 3.3 -> 43
+OPS_PER_PAIR = {"fwd": 22, "bwd": 43}
+# the first, one-pixel-per-thread kernels' counts (power 11 from the six
+# coefficients, K2's 11 terms summed per pixel, a divide), printed beside
+# as first_bound_ms for comparison with earlier bounds
+FIRST_OPS_PER_PAIR = {"fwd": 26, "bwd": 54}
+BYTES_PER_INSTANCE = 64  # one [16] f32 column of data
+# K2's fused epilogue, per instance up to its tile's last contributor: the
+# 8 B gidx read, the 24 B gather of mean2d, conic and opacity from packed
+# and 40 B of atomics into d_packed; 37 f32 operations (the VJP of
+# gaussian_power_coeffs: mean2d 8 + 8, conic 6 + 7 + 6, opacity 1; the
+# reciprocal of the opacity 1)
+EPILOGUE_BYTES = 8 + 24 + 40
+EPILOGUE_OPS = 37
 # tolerances kernel vs plain (both f32; the kernel composites sequentially,
 # the plain version with a cumprod, so isolated pixels may flip across the
 # 1/255 and T=1e-4 gates): q99 and worst case of |diff| per output row
 FWD_TOL = {"rgb": 3e-4, "alpha": 3e-4, "depth": 2e-3}
 WORST_FACTOR = 100.0
-# dgrad: worst |diff| relative to the largest |value| of its row
+# d_packed [B, N, 10]: worst |diff| relative to the largest |value| of its
+# column. The kernel sums each gaussian's terms over tiles with atomics in
+# an order that changes from run to run, over pixels in another order than
+# the plain version, and rebuilds T through ex2.approx / rcp.approx (2 ulp)
 BWD_REL_TOL = 2e-3
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
@@ -101,6 +123,32 @@ def ptxas_entries(log: str):
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     return out
+
+
+SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "FSEL", "SEL", "SHFL", "LDS",
+            "STS", "LDG", "REDG", "BRA")
+
+
+def sass_counts(lib: str, nvcc: str) -> dict:
+    """Static SASS instruction counts of SASS_OPS per kernel of a built
+    library (cuobjdump -sass, beside nvcc)."""
+    import re
+    from collections import Counter
+
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            out[fn] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)", ln)
+        if fn and m:
+            out[fn][m.group(1)] += 1
+    return {f: {"total": sum(c.values()), **{k: c[k] for k in SASS_OPS}}
+            for f, c in out.items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, enqueue: bool = False):
@@ -161,24 +209,39 @@ def build_scene(dev):
     return sk, gs
 
 
+def quantile(v, q: float) -> float:
+    """The q-quantile of v, from a strided sample of at most ~1M values."""
+    import torch
+
+    v = v.flatten()
+    return float(torch.quantile(v[::max(1, v.numel() // 1_000_000)]
+                                .float(), q))
+
+
+def spread(v) -> dict:
+    return {"max": float(v.max()), "p99": quantile(v, 0.99),
+            "mean": round(float(v.double().mean()), 3)}
+
+
 def check_kernels(gs, cams, rcfg, gen, tag: str, timing: bool):
-    """K1/K2 against their plain versions on one camera batch."""
+    """K1 and the fused K2 against their plain versions on one camera
+    batch; with `timing`, each kernel's time and its plain version's."""
     import torch
     from gaussianip_tpu_torch.render import composite_cuda as cc
     from gaussianip_tpu_torch.render.render import instance_data
 
-    with torch.no_grad():
-        data, bn = instance_data(gs, cams, rcfg)
+    inst = instance_data(gs, cams, rcfg)
+    data, bn, ntx = inst.data, inst.binning, inst.n_tiles_x
     starts, counts = bn.starts, bn.counts
-    out_k = cc.composite_fwd_cuda(data, starts, counts)
+    order = cc.heaviest_first(counts)  # as the render path
+    out_k = cc.composite_fwd_cuda(data, starts, counts, order)
     out_p = cc.composite_fwd_plain(data, starts, counts)
     torch.cuda.synchronize()
     res = {}
     for name, rows in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
                        ("alpha", slice(4, 5))):
         d = (out_k[:, :, rows] - out_p[:, :, rows]).abs().flatten()
-        q99 = float(torch.quantile(d[::max(1, d.numel() // 1_000_000)]
-                                   .float(), 0.99))
+        q99 = quantile(d, 0.99)
         mx = float(d.max())
         res[name] = (q99, mx)
         if not (q99 < FWD_TOL[name] and mx < WORST_FACTOR * FWD_TOL[name]):
@@ -187,50 +250,74 @@ def check_kernels(gs, cams, rcfg, gen, tag: str, timing: bool):
     last_eq = float((out_k[:, :, 5] == out_p[:, :, 5]).float().mean())
     gout = torch.randn(out_k.shape, generator=gen, device=out_k.device)
     gout[:, :, 5:] = 0.0  # the render path's gout has zero rows 5-7
-    dg_k = cc.composite_bwd_cuda(data, starts, counts, out_k, gout)
-    dg_p = cc.composite_bwd_plain(data, starts, counts, out_k, gout)
+
+    def fwd():
+        return cc.composite_fwd_cuda(data, starts, counts, order)
+
+    def bwd():
+        return cc.composite_bwd_gaussians_cuda(
+            data, inst.packed, bn.gidx, starts, counts, order, out_k, gout,
+            ntx)
+
+    def bwd_plain():
+        return cc.composite_bwd_gaussians_plain(
+            data, inst.packed, bn.gidx, bn.tile_of, starts, counts, out_k,
+            gout, ntx, inst.n_tiles_y)
+
+    dp_k = bwd()
+    dp_p = bwd_plain()
     torch.cuda.synchronize()
-    scale = dg_p.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1e-30)
-    rel = ((dg_k - dg_p).abs() / scale)
+    diff = (dp_k - dp_p).abs().amax(dim=(0, 1))
+    rel = diff / dp_p.abs().amax(dim=(0, 1)).clamp(min=1e-30)
     bwd_rel = float(rel.max())
-    bwd_abs = float((dg_k - dg_p).abs().max())
+    bwd_abs = float(diff.max())
     if not bwd_rel < BWD_REL_TOL:
-        raise AssertionError(f"K2 {tag}: worst |diff|/row max {bwd_rel} vs "
-                             f"{BWD_REL_TOL}")
+        raise AssertionError(f"K2 {tag}: worst |diff|/column max per column "
+                             f"{rel.tolist()} vs {BWD_REL_TOL}")
     live = int(counts.to(torch.int64).sum())
     # (instance, pixel) pairs the data needs walked: every pixel up to its
-    # last contributor
-    pairs = int((out_k[:, :, 5].to(torch.int64) + 1).sum())
+    # last contributor; instances K2 visits: each tile's up to its last
+    # contributor
+    last = out_k[:, :, 5].to(torch.int64)
+    pairs = int((last + 1).sum())
+    walk = (last.amax(dim=-1) + 1).flatten()
+    touched = int(walk.sum())
     log(f"kernels:{tag}", live_instances=live,
         n_dropped=[int(x) for x in bn.n_dropped], pairs=pairs,
+        touched_instances=touched,
         fwd_q99_max={k: v for k, v in res.items()},
         last_index_equal=round(last_eq, 6), bwd_max_abs=bwd_abs,
-        bwd_max_rel=bwd_rel)
-    info = {"live": live, "pairs": pairs, "fwd_err": max(
+        bwd_rel_by_column=[float(f"{x:.3g}") for x in rel.tolist()])
+    log(f"segments:{tag}", tiles=counts.numel(),
+        empty=int((counts == 0).sum()), length=spread(counts),
+        walk_to_last=spread(walk), pixel_walk=spread(last + 1))
+    info = {"live": live, "pairs": pairs, "touched": touched, "fwd_err": max(
         v[1] for v in res.values()), "bwd_err": bwd_abs}
     if timing:
-        info["fwd_ms"] = cuda_ms(
-            lambda: cc.composite_fwd_cuda(data, starts, counts), 20)
-        info["bwd_ms"] = cuda_ms(
-            lambda: cc.composite_bwd_cuda(data, starts, counts, out_k, gout),
-            20)
+        info["fwd_ms"] = cuda_ms(fwd, 20)
+        info["bwd_ms"] = cuda_ms(bwd, 20)
+        info["order_ms"] = cuda_ms(lambda: cc.heaviest_first(counts), 20)
         info["fwd_plain_ms"] = cuda_ms(
             lambda: cc.composite_fwd_plain(data, starts, counts), 3, 1)
-        info["bwd_plain_ms"] = cuda_ms(
-            lambda: cc.composite_bwd_plain(data, starts, counts, out_k, gout),
-            3, 1)
-        nt_total = starts.numel()
-        out_bytes = nt_total * 8 * 256 * 4
+        info["bwd_plain_ms"] = cuda_ms(bwd_plain, 3, 1)
+        out_bytes = counts.numel() * 8 * 256 * 4
         info["fwd_bytes"] = live * BYTES_PER_INSTANCE + out_bytes
-        info["bwd_bytes"] = (2 * live * BYTES_PER_INSTANCE + 2 * out_bytes)
+        info["bwd_bytes"] = (touched * (BYTES_PER_INSTANCE + EPILOGUE_BYTES)
+                             + 2 * out_bytes)
+        for k in ("fwd", "bwd"):
+            epilogue = touched * EPILOGUE_OPS if k == "bwd" else 0
+            info[f"{k}_ops"] = pairs * OPS_PER_PAIR[k] + epilogue
+            info[f"{k}_first_ops"] = pairs * FIRST_OPS_PER_PAIR[k] + epilogue
         log(f"timing:{tag}", **{k: info[k] for k in (
-            "fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms")})
+            "fwd_ms", "bwd_ms", "order_ms", "fwd_plain_ms",
+            "bwd_plain_ms")})
     return info
 
 
 def check_oracle(gs, dev):
     """Tiled renderer (K1/K2) against the dense reference compositor on a
-    small input: images and gradients."""
+    small input: images and gradients; the tiled render's forward and
+    backward each launch their kernel once."""
     import torch
     from gaussianip_tpu_torch.data.cameras import camera_from_c2w
     from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
@@ -251,7 +338,8 @@ def check_oracle(gs, dev):
     cams = camera_from_c2w(orbit.c2w[:2], orbit.fovy[:2], res, res)
     bg = torch.zeros(3, device=dev)
     tgt = torch.rand((2, res, res, 3), generator=g, device=dev)
-    launches = cc.composite_fwd_cuda.launches
+    counters = (cc.composite_fwd_cuda, cc.composite_bwd_gaussians_cuda)
+    launches = [c.launches for c in counters]
 
     def grads(cfg):
         leaves = {f: getattr(small, f).detach().requires_grad_(True)
@@ -264,8 +352,10 @@ def check_oracle(gs, dev):
     o_t, g_t = grads(RenderConfig(d_max=16, depth_key="exact2",
                                   sort_stable=True))
     o_r, g_r = grads(RenderConfig(backend="reference"))
-    if cc.composite_fwd_cuda.launches != launches + 1:
-        raise AssertionError("oracle check did not go through K1")
+    ran = [c.launches - n0 for c, n0 in zip(counters, launches)]
+    if ran != [1, 1]:
+        raise AssertionError(f"oracle check launched K1, K2 {ran} times, "
+                             f"want once each")
     errs = {}
     for name, a, b, tol in (("rgb", o_t.rgb, o_r.rgb, 3e-4),
                             ("alpha", o_t.alpha, o_r.alpha, 3e-4),
@@ -285,7 +375,8 @@ def check_oracle(gs, dev):
                         / g_r[f].abs().max().clamp(min=1e-12))
         if not gerr[f] < ORACLE_GRAD_TOL:
             raise AssertionError(f"oracle grad {f}: {gerr[f]}")
-    log("oracle", n=n, res=res, image_q99_max=errs, grad_rel_err=gerr)
+    log("oracle", n=n, res=res, image_q99_max=errs, grad_rel_err=gerr,
+        k1_k2_launches=ran)
 
 
 def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
@@ -316,10 +407,17 @@ def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
             (kernels if e.device_type == cuda else ops).append(
                 (dev_us(e) / n / 1e3, e.count // n, e.key))
     busy = sum(ms for ms, _, _ in kernels)
+    # the per-gaussian gradient reduction is K2's: no scatter-add runs
+    scatter = [(ms, name) for ms, _, name in ops
+               if name.startswith(("aten::scatter_add", "aten::index_add"))]
     log(tag, steps=n, wall_ms_per_step=round(wall_ms, 3),
         device_ms_per_step=round(busy, 3),
         device_busy_share=round(busy / wall_ms, 4),
-        kernel_launches_per_step=sum(c for _, c, _ in kernels))
+        kernel_launches_per_step=sum(c for _, c, _ in kernels),
+        scatter_add_rows=scatter)
+    if scatter:
+        raise AssertionError(f"{tag}: a scatter-add ran in the step: "
+                             f"{scatter}")
     for title, rows in (("kernels", kernels), ("ops", ops)):
         for ms, count, name in sorted(rows, reverse=True)[:12]:
             print(f"  {title}: {ms:8.3f} ms/step x{count:<4d} {name[:100]}",
@@ -624,7 +722,7 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
 
     torch.cuda.reset_peak_memory_stats()
     cc.composite_fwd_cuda.launches = 0
-    cc.composite_bwd_cuda.launches = 0
+    cc.composite_bwd_gaussians_cuda.launches = 0
     for fn in k3_counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -634,7 +732,7 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
                          log_fn=on_step)
     torch.cuda.synchronize()
     launches = {"fwd": cc.composite_fwd_cuda.launches,
-                "bwd": cc.composite_bwd_cuda.launches,
+                "bwd": cc.composite_bwd_gaussians_cuda.launches,
                 **{k: fn.launches for k, fn in k3_counters.items()}}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
@@ -686,12 +784,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _nvcc.build(["composite", "conv3x3"])
+    libs = _nvcc.build(["composite", "conv3x3"])
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for name in ("composite", "conv3x3")
             for ln in _nvcc.ptxas_log.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
+    for name, counts in sass_counts(libs["composite"], _nvcc._nvcc()).items():
+        for kernel in ("composite_fwd_kernel", "composite_bwd_kernel"):
+            if kernel in name:
+                log("build:sass", kernel=kernel, **counts)
     from gaussianip_tpu_torch.ops.conv3x3_cuda import hopper_smem_bytes
     for name, lines in ptxas_entries(_nvcc.ptxas_log.get("conv3x3",
                                                          "")).items():
@@ -778,9 +880,9 @@ def main() -> int:
     # 7. kernels line: K1/K2 timed at the stub-guided path's shapes,
     # launches on the guided path (per path in launches_by_path); K3 summed
     # over the guided step's 67 launches
-    def bound(kind_):
+    def bound(kind_, ops="ops"):
         t_bytes = info[f"{kind_}_bytes"] / PEAK_BYTES * 1e3
-        t_ops = info["pairs"] * OPS_PER_PAIR[kind_] / PEAK_F32_OPS * 1e3
+        t_ops = info[f"{kind_}_{ops}"] / PEAK_F32_OPS * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                      else "operations")
 
@@ -789,7 +891,7 @@ def main() -> int:
     for kind_, name, rep, err in (
             ("fwd", "K1 composite_fwd",
              "gaussianip_tpu/render/composite_pallas.py:221", "fwd_err"),
-            ("bwd", "K2 composite_bwd",
+            ("bwd", "K2 composite_bwd (per-gaussian reduction fused)",
              "gaussianip_tpu/render/composite_pallas.py:246", "bwd_err")):
         b_ms, b_by = bound(kind_)
         kernels.append({
@@ -799,7 +901,8 @@ def main() -> int:
                 "stage1_guided": launches_g[kind_]},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "first_bound_ms": bound(kind_, "first_ops")[0]})
     kernels.append({
         "name": "K3 conv3x3", "route": "cuda",
         "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",

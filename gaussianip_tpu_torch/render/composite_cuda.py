@@ -1,8 +1,13 @@
 """Tile compositor: the hand-written CUDA kernels K1/K2
 (csrc/composite.cu) behind a torch.autograd.Function, and their plain
-PyTorch versions (port of gaussianip_tpu/render/composite_pallas.py).
+PyTorch versions (port of gaussianip_tpu/render/composite_pallas.py and of
+the attribute gather + pack of gaussianip_tpu/render/render.py).
 
-    data   [B, 16, E] f32: rows 0-5 power coefficients
+    packed [B, N, 10] f32 per-gaussian attributes: mean2d 0:2, conic 2:5,
+           opacity 5, colour 6:9, depth 9 (the differentiable input).
+    gidx, tile_of [B, E] i64: gaussian and tile of each instance slot
+           (N and NT for dead slots), from binning.bin_instances.
+    data   [B, 16, E] f32 (`pack_instances`): rows 0-5 power coefficients
            (preprocess.gaussian_power_coeffs in tile-local pixel coords),
            rows 8-12 features [r, g, b, depth, 1]; rows 6-7, 13-15 zero.
     starts, counts [B, NT] i32: unaligned depth-sorted segment per tile.
@@ -10,10 +15,14 @@ PyTorch versions (port of gaussianip_tpu/render/composite_pallas.py).
            4 alpha, 5 last contributor (segment-relative, -1 = none; only the
            backward reads it), 6-7 zero.
 
-A CUDA tensor goes through the kernels, a CPU tensor through the plain
-versions; there is no other path. Each wrapper counts its launches in
-`.launches`. The plain backward is the same closed form as K2 (not autograd
-of the forward): the gradient of alpha is not gated at the 0.99 cap.
+The Function's forward packs `data` (no autograd) and runs K1; its backward
+runs K2, which also reduces the per-instance gradients into
+d_packed [B, N, 10] with atomics. A CUDA tensor goes through the kernels, a
+CPU tensor through the plain versions; there is no other path. Each kernel
+wrapper counts its launches in `.launches`. The plain backward is the same
+closed form as K2 (not autograd of the forward): the gradient of alpha is
+not gated at the 0.99 cap. It is pulled back to d_packed by autograd of
+`pack_instances`, where K2 applies the VJP of the pack by hand.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ import functools
 
 import torch
 
+from .preprocess import gaussian_power_coeffs
+
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-KERNEL_TILE = 16  # K1/K2 run one thread per pixel of a 16x16 tile
+KERNEL_TILE = 16  # K1/K2 run 16x16 tiles
 
 
 def _pixel_features(tile: int, like: torch.Tensor) -> torch.Tensor:
@@ -35,6 +46,29 @@ def _pixel_features(tile: int, like: torch.Tensor) -> torch.Tensor:
     x = (idx % tile).to(like.dtype)
     y = (idx // tile).to(like.dtype)
     return torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])
+
+
+def pack_instances(packed, gidx, tile_of, n_tiles_x: int, n_tiles_y: int,
+                   tile: int = 16) -> torch.Tensor:
+    """Gather the 10 attributes of each instance's gaussian and pack the
+    compositor's data [B, 16, E]; dead slots are zero. Differentiable in
+    `packed` when autograd records it (the Function runs it without)."""
+    n = packed.shape[1]
+    rv = gidx < n  # [B, E]
+    gidx_safe = torch.clamp(gidx, max=n - 1)
+    inst = torch.gather(packed, 1, gidx_safe[..., None].expand(-1, -1, 10))
+    tile_safe = torch.clamp(tile_of, max=n_tiles_x * n_tiles_y - 1)
+    origin = torch.stack([(tile_safe % n_tiles_x) * tile,
+                          (tile_safe // n_tiles_x) * tile], -1).to(
+                              packed.dtype)
+    coeff6 = gaussian_power_coeffs(inst[..., 0:2] - origin, inst[..., 2:5],
+                                   inst[..., 5])
+    z = torch.zeros_like(inst[..., 0])
+    planes = [coeff6[..., i] for i in range(6)] + [z, z]
+    planes += [inst[..., 6], inst[..., 7], inst[..., 8], inst[..., 9],
+               rv.to(packed.dtype), z, z, z]
+    data = torch.stack(planes, dim=1)  # [B, 16, E]
+    return torch.where(rv[:, None, :], data, torch.zeros_like(data))
 
 
 # ---------------------------------------------------------------- plain ---
@@ -137,6 +171,22 @@ def composite_bwd_plain(data, starts, counts, out, gout, tile: int = 16,
     return dflat.view(16, b, e).permute(1, 0, 2).contiguous()
 
 
+def composite_bwd_gaussians_plain(data, packed, gidx, tile_of, starts,
+                                  counts, out, gout, n_tiles_x: int,
+                                  n_tiles_y: int,
+                                  tile: int = 16) -> torch.Tensor:
+    """K2's plain version: composite_bwd_plain's per-instance gradient,
+    pulled back through pack_instances (the gather and
+    gaussian_power_coeffs) by autograd into d_packed [B, N, 10]."""
+    dgrad = composite_bwd_plain(data, starts, counts, out, gout, tile)
+    with torch.enable_grad():
+        leaf = packed.detach().requires_grad_(True)
+        again = pack_instances(leaf, gidx, tile_of, n_tiles_x, n_tiles_y,
+                               tile)
+        (d_packed,) = torch.autograd.grad(again, leaf, dgrad)
+    return d_packed
+
+
 # --------------------------------------------------------------- kernels ---
 
 @functools.cache
@@ -145,10 +195,11 @@ def _lib():
 
     lib = _nvcc.load("composite")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.composite_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
-    lib.composite_fwd.restype = i32
-    lib.composite_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64,
+    lib.composite_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64,
                                   ptr]
+    lib.composite_fwd.restype = i32
+    lib.composite_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                  i32, i32, i32, i64, i64, ptr]
     lib.composite_bwd.restype = i32
     return lib
 
@@ -162,7 +213,7 @@ def _check(name, t, dtype, shape, device):
             f"(contiguous={t.is_contiguous()})")
 
 
-def _check_inputs(data, starts, counts, tile):
+def _check_inputs(data, starts, counts, tile, order):
     if not data.is_cuda:
         raise ValueError("the CUDA compositor takes CUDA tensors")
     if tile != KERNEL_TILE:
@@ -174,17 +225,22 @@ def _check_inputs(data, starts, counts, tile):
     _check("data", data, torch.float32, (b, 16, e), data.device)
     _check("starts", starts, torch.int32, (b, nt), data.device)
     _check("counts", counts, torch.int32, (b, nt), data.device)
+    _check("order", order, torch.int32, (b * nt,), data.device)
     return b, nt, e
 
 
-def composite_fwd_cuda(data, starts, counts, tile: int = 16) -> torch.Tensor:
-    """K1 on the current stream. Segments must lie inside [0, E)."""
-    b, nt, e = _check_inputs(data, starts, counts, tile)
+def composite_fwd_cuda(data, starts, counts, order,
+                       tile: int = 16) -> torch.Tensor:
+    """K1 on the current stream. Segments must lie inside [0, E); `order`
+    [B * NT] i32 is the order in which CTAs take the segments
+    (`heaviest_first`)."""
+    b, nt, e = _check_inputs(data, starts, counts, tile, order)
     out = torch.empty((b, nt, 8, tile * tile), dtype=torch.float32,
                       device=data.device)
     err = _lib().composite_fwd(
         data.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), b, nt, e, torch.cuda.current_stream().cuda_stream)
+        order.data_ptr(), out.data_ptr(), b, nt, e,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
     composite_fwd_cuda.launches += 1
@@ -194,54 +250,85 @@ def composite_fwd_cuda(data, starts, counts, tile: int = 16) -> torch.Tensor:
 composite_fwd_cuda.launches = 0
 
 
-def composite_bwd_cuda(data, starts, counts, out, gout,
-                       tile: int = 16) -> torch.Tensor:
-    """K2 on the current stream; `out` is K1's output for the same inputs."""
-    b, nt, e = _check_inputs(data, starts, counts, tile)
+def composite_bwd_gaussians_cuda(data, packed, gidx, starts, counts, order,
+                                 out, gout, n_tiles_x: int,
+                                 tile: int = 16) -> torch.Tensor:
+    """K2 on the current stream: d_packed [B, N, 10] from `out`, K1's output
+    for the same inputs, and `gout`; `data` is pack_instances(packed, ...),
+    `order` as composite_fwd_cuda."""
+    b, nt, e = _check_inputs(data, starts, counts, tile, order)
+    if n_tiles_x <= 0 or nt % n_tiles_x:
+        raise ValueError(f"{nt} tiles are not rows of {n_tiles_x}")
+    n = packed.shape[1]
+    _check("packed", packed, torch.float32, (b, n, 10), data.device)
+    _check("gidx", gidx, torch.int64, (b, e), data.device)
     _check("out", out, torch.float32, (b, nt, 8, tile * tile), data.device)
     _check("gout", gout, torch.float32, (b, nt, 8, tile * tile), data.device)
-    dgrad = torch.zeros_like(data)
+    d_packed = torch.zeros_like(packed)
     err = _lib().composite_bwd(
-        data.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        gout.data_ptr(), dgrad.data_ptr(), b, nt, e,
+        data.data_ptr(), starts.data_ptr(), order.data_ptr(), out.data_ptr(),
+        gout.data_ptr(), packed.data_ptr(), gidx.data_ptr(),
+        d_packed.data_ptr(), b, nt, n_tiles_x, e, n,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
-    composite_bwd_cuda.launches += 1
-    return dgrad
+    composite_bwd_gaussians_cuda.launches += 1
+    return d_packed
 
 
-composite_bwd_cuda.launches = 0
+composite_bwd_gaussians_cuda.launches = 0
 
 
-class _CompositeTiles(torch.autograd.Function):
+def heaviest_first(counts) -> torch.Tensor:
+    """[B * NT] i32 segment order by descending length (a CTA order)."""
+    return torch.argsort(counts.reshape(-1), descending=True).to(torch.int32)
+
+
+class _CompositeGaussians(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, starts, counts, tile):
-        if data.is_cuda:
-            out = composite_fwd_cuda(data, starts, counts, tile)
+    def forward(ctx, packed, gidx, tile_of, starts, counts, n_tiles_x,
+                n_tiles_y, tile):
+        data = pack_instances(packed, gidx, tile_of, n_tiles_x, n_tiles_y,
+                              tile)
+        ctx.grid = (n_tiles_x, n_tiles_y, tile)
+        # the kernels take the tiles in `order`; the plain backward re-packs
+        # with `tile_of`
+        if packed.is_cuda:
+            # the longest segments start first, so they do not run last
+            order = heaviest_first(counts)
+            out = composite_fwd_cuda(data, starts, counts, order, tile)
+            ctx.save_for_backward(data, packed, gidx, starts, counts, out,
+                                  order)
         else:
             out = composite_fwd_plain(data, starts, counts, tile)
-        ctx.tile = tile
-        ctx.save_for_backward(data, starts, counts, out)
+            ctx.save_for_backward(data, packed, gidx, starts, counts, out,
+                                  tile_of)
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        data, starts, counts, out = ctx.saved_tensors
+        data, packed, gidx, starts, counts, out, order_or_tile_of = \
+            ctx.saved_tensors
+        ntx, nty, tile = ctx.grid
         gout = gout.contiguous()
-        if data.is_cuda:
-            dgrad = composite_bwd_cuda(data, starts, counts, out, gout,
-                                       ctx.tile)
+        if packed.is_cuda:
+            d_packed = composite_bwd_gaussians_cuda(
+                data, packed, gidx, starts, counts, order_or_tile_of, out,
+                gout, ntx, tile)
         else:
-            dgrad = composite_bwd_plain(data, starts, counts, out, gout,
-                                        ctx.tile)
-        return dgrad, None, None, None
+            d_packed = composite_bwd_gaussians_plain(
+                data, packed, gidx, order_or_tile_of, starts, counts, out,
+                gout, ntx, nty, tile)
+        return d_packed, None, None, None, None, None, None, None
 
 
-def composite_tiles(data, starts, counts, tile: int = 16) -> torch.Tensor:
-    """Composite depth-sorted instance segments into per-tile accumulators
-    [B, NT, 8, tile*tile]; differentiable in `data`."""
-    return _CompositeTiles.apply(data, starts, counts, tile)
+def composite_tiles(packed, gidx, tile_of, starts, counts, n_tiles_x: int,
+                    n_tiles_y: int, tile: int = 16) -> torch.Tensor:
+    """Composite the depth-sorted instance segments of the gaussians in
+    `packed` [B, N, 10] into per-tile accumulators [B, NT, 8, tile*tile];
+    differentiable in `packed`."""
+    return _CompositeGaussians.apply(packed, gidx, tile_of, starts, counts,
+                                     n_tiles_x, n_tiles_y, tile)
 
 
 def tiles_to_image(out, n_tiles_y: int, n_tiles_x: int, tile: int,

@@ -3,9 +3,10 @@
 Given a GaussianState and a batch of cameras: rgb / depth / alpha images,
 per-gaussian screen radii and, through `mean2d_offset`, the NDC viewspace
 gradient hook for the densification statistics. The pipeline is
-project -> bin -> gather + pack the [B, 16, E] instance data -> composite
-(K1/K2 on CUDA tensors) -> background. The per-instance -> per-gaussian
-gradient reduction is autograd of the attribute gather (a scatter-add).
+project -> bin -> composite (the [B, N, 10] per-gaussian attributes through
+the gather + pack and K1 / K2 on CUDA tensors) -> background. The
+per-instance -> per-gaussian gradient reduction is fused into K2's
+atomics (on CPU tensors, autograd of the gather in the plain backward).
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .binning import bin_instances
-from .composite_cuda import composite_tiles, tiles_to_image
+from .binning import Binning, bin_instances
+from .composite_cuda import composite_tiles, pack_instances, tiles_to_image
 from .composite_ref import composite_reference
-from .preprocess import gaussian_power_coeffs, project_gaussians
+from .preprocess import project_gaussians
 
 
 @dataclass(frozen=True)
@@ -92,39 +93,34 @@ def _bin(proj, cameras, n: int, cfg: RenderConfig):
 
 
 def _pack(proj, cameras, n: int, cfg: RenderConfig):
-    """Bin, then gather the 10 per-gaussian attributes per instance (one
-    gather; its autograd is the per-instance -> per-gaussian scatter-add)
-    and pack the compositor's [B, 16, E] data."""
+    """Bin, and stack the compositor's per-gaussian attributes
+    packed [B, N, 10]: mean2d, conic, opacity, colour, depth."""
     b = proj.depth.shape[0]
     binning, ntx, nty = _bin(proj, cameras, n, cfg)
     opac = proj.opacity[None].expand(b, n)
     packed = torch.cat([proj.mean2d, proj.conic, opac[..., None],
-                        proj.color, proj.depth[..., None]], -1)  # [B, N, 10]
-    rv = binning.gidx < n  # [B, E]
-    gidx_safe = torch.clamp(binning.gidx, max=n - 1)
-    inst = torch.gather(packed, 1, gidx_safe[..., None].expand(-1, -1, 10))
-
-    tile = cfg.tile
-    tile_safe = torch.clamp(binning.tile_of, max=ntx * nty - 1)
-    origin = torch.stack([(tile_safe % ntx) * tile,
-                          (tile_safe // ntx) * tile], -1).to(torch.float32)
-    coeff6 = gaussian_power_coeffs(inst[..., 0:2] - origin, inst[..., 2:5],
-                                   inst[..., 5])
-    z = torch.zeros_like(inst[..., 0])
-    planes = [coeff6[..., i] for i in range(6)] + [z, z]
-    planes += [inst[..., 6], inst[..., 7], inst[..., 8], inst[..., 9],
-               rv.to(torch.float32), z, z, z]
-    data = torch.stack(planes, dim=1)  # [B, 16, E]
-    data = torch.where(rv[:, None, :], data, torch.zeros_like(data))
-    return data, binning, ntx, nty
+                        proj.color, proj.depth[..., None]], -1)
+    return packed, binning, ntx, nty
 
 
-def instance_data(gaussians, cameras, cfg: RenderConfig = RenderConfig()):
-    """The compositor's inputs for these cameras, as `render` builds them:
-    (data [B, 16, E], Binning)."""
+class InstanceData(NamedTuple):
+    packed: torch.Tensor  # [B, N, 10] per-gaussian attributes
+    data: torch.Tensor  # [B, 16, E] the compositor's instance data
+    binning: Binning
+    n_tiles_x: int
+    n_tiles_y: int
+
+
+@torch.no_grad()
+def instance_data(gaussians, cameras,
+                  cfg: RenderConfig = RenderConfig()) -> InstanceData:
+    """The compositor's inputs for these cameras, as `render` builds
+    them."""
     proj = _project(gaussians, cameras, None, 1.0, None, None)
-    data, binning, _, _ = _pack(proj, cameras, gaussians.capacity, cfg)
-    return data, binning
+    packed, binning, ntx, nty = _pack(proj, cameras, gaussians.capacity, cfg)
+    data = pack_instances(packed, binning.gidx, binning.tile_of, ntx, nty,
+                          cfg.tile)
+    return InstanceData(packed, data, binning, ntx, nty)
 
 
 def render(gaussians, cameras, bg_color, cfg: RenderConfig = RenderConfig(),
@@ -157,8 +153,9 @@ def render(gaussians, cameras, bg_color, cfg: RenderConfig = RenderConfig(),
     if cfg.backend != "tiles":
         raise ValueError(f"unknown render backend {cfg.backend!r}")
 
-    data, binning, ntx, nty = _pack(proj, cameras, n, cfg)
-    out = composite_tiles(data, binning.starts, binning.counts, cfg.tile)
+    packed, binning, ntx, nty = _pack(proj, cameras, n, cfg)
+    out = composite_tiles(packed, binning.gidx, binning.tile_of,
+                          binning.starts, binning.counts, ntx, nty, cfg.tile)
     rgb, depth, alpha = tiles_to_image(out, nty, ntx, cfg.tile, h, w)
     rgb = rgb + bgc * (1.0 - alpha[..., None])
     return RenderOutput(rgb, depth, alpha, proj.radius, binning.n_dropped)
