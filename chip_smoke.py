@@ -18,9 +18,16 @@ guided step (batch 12, bf16) through the variant its gate names (the
 Hopper wgmma + TMA one at every SD1.5 shape) and times it beside the
 general variant and F.conv2d, and drives stage-1 training with the real
 AHDS / ANPG guidance; the tiny test stack on the card runs the general
-variant. Prints one line per phase, a `kernels` JSON line, the card's name
-and power limit, and as its last line {"ok": true, "device": {...}}. Any
-failed phase exits non-zero; there is no CPU path.
+variant. Then, from the stub-trained, densified and pruned state, the rest
+of the avatar path: the .ply handoff and the 32 refine views at 1024^2,
+K3 against its plain version at every conv shape of a refine denoise call
+(128^2 latents, CFG batch 8), the largest attention on a fused backend,
+the tiny stack's refine on the card against the CPU, the VCR refinement
+at 1024^2 (stage 2), K1/K2 against their plain versions at 1024^2 x 4,
+stage-3 steps with a random-weight LPIPS at VGG16 width across the
+densify, and the turntable. Prints one line per phase, a `kernels` JSON
+line, the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}. Any failed phase exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -94,6 +101,29 @@ WORST_FACTOR = 100.0
 # an order that changes from run to run, over pixels in another order than
 # the plain version, and rebuilds T through ex2.approx / rcp.approx (2 ulp)
 BWD_REL_TOL = 2e-3
+# stages 2 and 3 at the recipe's sizes (configs/exp.yaml): 32 refine views
+# at 1024^2 (elevation 17, distance 1.5, fovy 70), 8 of the 50 DDIM ladder
+# steps, 8 denoise calls a step (anchors, keys, 6 dense groups of 4); 800
+# stage-3 steps of 4 views with the one densify after step index 100, cut
+# to S3_STEPS; the turntable is the eval orbit's test split (144 body and
+# 144 head views)
+HIRES = 1024
+REFINE_VIEWS = 32
+REFINE_STEPS = 8
+REFINE_CALLS_PER_STEP = 8
+S3_STEPS = 110
+S3_WARMUP = 5
+S3_D_MAX = 25  # RenderConfig() of stage 3 and the turntable
+# the tiny stack's refine (1 step, 32 views at 32^2) at bf16 on the card
+# against float32 on the CPU, worst |diff| on images in [0, 1]: bf16
+# rounding through the VAE and the 8 denoise calls, which the same
+# comparison with bf16 on the CPU shows too; a layout or row fault is O(1)
+REFINE_REF_RES = 32
+REFINE_REF_TOL = 6e-2
+# share of the CPU output's pixels strictly inside (0, 1) that the
+# comparison needs, so that vae_decode's clamp does not decide it (the
+# same floor as the CPU parity test's)
+REFINE_REF_INTERIOR = 0.2
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
 # package's tiled compositor deviates from its dense oracle by 1.4e-3 on
@@ -383,19 +413,32 @@ def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
                   n: int = 3, tag: str = "profile"):
     """Device time by kernel over n steps (torch.profiler), and the device's
     busy share of the window's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from gaussianip_tpu_torch.model.adam import AdamHyper
     from gaussianip_tpu_torch.system import stage1 as s1
 
     step_fn = s1.make_train_step(cfg, cam_cfg, rcfg, AdamHyper(), guidance,
                                  points3d)
+    state = [ts]
+
+    def step():
+        state[0], _ = step_fn(state[0], gen)
+
+    return profile_window(step, n, tag)
+
+
+def profile_window(step, n: int, tag: str):
+    """Device time by kernel over n calls of step() (torch.profiler), the
+    device's busy share of the window's wall time, and the check that no
+    scatter-add ran. Returns (device ms per call, busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            ts, _ = step_fn(ts, gen)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
@@ -422,6 +465,7 @@ def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
         for ms, count, name in sorted(rows, reverse=True)[:12]:
             print(f"  {title}: {ms:8.3f} ms/step x{count:<4d} {name[:100]}",
                   flush=True)
+    return busy, busy / wall_ms
 
 
 def view_aux(b: int, dev):
@@ -435,25 +479,21 @@ def view_aux(b: int, dev):
             "center": zeros, "camera_distances": zeros + 1.5}
 
 
-def conv_sites(guidance, gen, batch: int, res: int, dev="cuda"):
-    """Every stride-1 Conv3x3 call of one guidance call on `batch` views,
-    in call order, as (module, input shape), from forward pre-hooks."""
+def collect_conv_sites(models, fn):
+    """Every stride-1 Conv3x3 call in `models` while fn() runs, in call
+    order, as (module, input shape), from forward pre-hooks."""
     import torch
     from gaussianip_tpu_torch.ops.conv3x3 import Conv3x3
 
     sites, hooks = [], []
-    for model in (guidance.models.controlnet, guidance.models.unet):
+    for model in models:
         for m in model.modules():
             if isinstance(m, Conv3x3) and m.stride == 1:
                 hooks.append(m.register_forward_pre_hook(
                     lambda mod, args: sites.append((mod,
                                                     tuple(args[0].shape)))))
     try:
-        draws = guidance.sample_noise(gen, (batch, res, res, 3), dev)
-        rgb = torch.rand((batch, res, res, 3), generator=gen, device=dev)
-        with torch.no_grad():
-            guidance(0, draws, rgb, torch.zeros_like(rgb),
-                     view_aux(batch, dev))
+        fn()
         torch.cuda.synchronize()
     finally:
         for h in hooks:
@@ -461,7 +501,22 @@ def conv_sites(guidance, gen, batch: int, res: int, dev="cuda"):
     return sites
 
 
-def check_k3(sites, gen, dev="cuda"):
+def conv_sites(guidance, gen, batch: int, res: int, dev="cuda"):
+    """Every stride-1 Conv3x3 call of one guidance call on `batch` views."""
+    import torch
+
+    def run():
+        draws = guidance.sample_noise(gen, (batch, res, res, 3), dev)
+        rgb = torch.rand((batch, res, res, 3), generator=gen, device=dev)
+        with torch.no_grad():
+            guidance(0, draws, rgb, torch.zeros_like(rgb),
+                     view_aux(batch, dev))
+
+    return collect_conv_sites((guidance.models.controlnet,
+                               guidance.models.unet), run)
+
+
+def check_k3(sites, gen, dev="cuda", tag: str = "k3"):
     """K3 against its plain version at every distinct (Ci, Co, H, W) of the
     guided step's conv sites, on the site's own weights and a N(0, 1) bf16
     input at the site's batch, through the variant the gate names; dx (the
@@ -531,7 +586,7 @@ def check_k3(sites, gen, dev="cuda"):
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         rows.append((ci, co, h, w, c, flop))
         plan = k3.k3_plan(b, h, w, ci, co) if variant == "hopper" else None
-        log("k3", shape=f"{b}x{ci}x{h}x{w}->{co}", sites=c, variant=variant,
+        log(tag, shape=f"{b}x{ci}x{h}x{w}->{co}", sites=c, variant=variant,
             plan=plan and {"bn": plan.bn, "splits": plan.splits,
                            "ctas": plan.units},
             ms=round(t["ms"], 4), prev_ms=round(t["prev_ms"], 4),
@@ -541,8 +596,8 @@ def check_k3(sites, gen, dev="cuda"):
             prev_tflops=round(flop / t["prev_ms"] / 1e9, 1),
             max_abs_err=err, rel_err=err / scale)
     if tot["launches"] != K3_SITES:
-        raise AssertionError(f"{tot['launches']} conv sites per guided "
-                             f"step, want {K3_SITES}")
+        raise AssertionError(f"{tag}: {tot['launches']} conv sites per "
+                             f"call, want {K3_SITES}")
     # dx through the autograd Function at the largest shape by FLOP
     ci, co, h, w, *_ = max(rows, key=lambda r: r[-1])
     mod = shapes[(ci, co, h, w)]["mod"]
@@ -585,13 +640,13 @@ def check_k3(sites, gen, dev="cuda"):
         ("conv3x3_same", lambda: k3.conv3x3_same(xs, wf, bf)),
         ("conv2d", lambda: F.conv2d(xs, wb, bias.to(torch.bfloat16),
                                     padding=1)))}
-    log("k3:host", shape=f"{small['batch']}x{key[0]}x{key[2]}x{key[3]}->"
+    log(f"{tag}:host", shape=f"{small['batch']}x{key[0]}x{key[2]}x{key[3]}->"
         f"{key[1]}", us_per_call={k: round(v, 2) for k, v in host.items()})
     t_ops = tot["flop"] / PEAK_BF16_OPS * 1e3
     t_bytes = tot["bytes"] / PEAK_BYTES * 1e3
     tot["bound_ms"] = max(t_ops, t_bytes)
     tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log("k3:step", sites=tot["launches"], distinct_shapes=len(rows),
+    log(f"{tag}:step", sites=tot["launches"], distinct_shapes=len(rows),
         ms=round(tot["ms"], 3), prev_ms=round(tot["prev_ms"], 3),
         conv2d_ms=round(tot["library_ms"], 3),
         plain_ms=round(tot["plain_ms"], 3),
@@ -704,13 +759,8 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
     import torch
     from gaussianip_tpu_torch.model.adam import AdamHyper
     from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
-    from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
-    from gaussianip_tpu_torch.render import composite_cuda as cc
     from gaussianip_tpu_torch.system import stage1 as s1
 
-    k3_counters = {"conv3x3": k3.conv3x3_cuda,
-                   "conv3x3_hopper": k3.conv3x3_hopper,
-                   "conv3x3_general": k3.conv3x3_general}
     cfg = s1.Stage1Config(render_height=RES, render_width=RES)
     ts = s1.init_train_state(gs0)
     x0 = {f: getattr(gs0, f).clone() for f in PARAM_FIELDS}
@@ -720,22 +770,16 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
         stamps.append(time.perf_counter())
         logs.append(m)
 
+    def run():
+        stamps.append(time.perf_counter())
+        return s1.train_stage1(
+            ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance, sk.points3d, gen,
+            n_steps=n_steps, log_every=1, log_fn=on_step)
+
     torch.cuda.reset_peak_memory_stats()
-    cc.composite_fwd_cuda.launches = 0
-    cc.composite_bwd_gaussians_cuda.launches = 0
-    for fn in k3_counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    ts = s1.train_stage1(ts, cfg, cam_cfg, rcfg, AdamHyper(), guidance,
-                         sk.points3d, gen, n_steps=n_steps, log_every=1,
-                         log_fn=on_step)
-    torch.cuda.synchronize()
-    launches = {"fwd": cc.composite_fwd_cuda.launches,
-                "bwd": cc.composite_bwd_gaussians_cuda.launches,
-                **{k: fn.launches for k, fn in k3_counters.items()}}
+    ts, launches = count_launches(run)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = [float(x) for x in np.diff([t_start] + stamps) * 1e3]
+    step_ms = [float(x) for x in np.diff(stamps) * 1e3]
     med = float(np.median(step_ms[warmup:]))
     moved = {f: float((getattr(ts.gaussians, f) - x0[f]).abs().max())
              for f in ("xyz", "f_dc", "opacity", "scaling")}
@@ -754,14 +798,410 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
     return ts, cfg, launches, med
 
 
+def kernel_counters():
+    """name -> the launch counter of each kernel wrapper."""
+    from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
+    from gaussianip_tpu_torch.render import composite_cuda as cc
+
+    return {"fwd": cc.composite_fwd_cuda,
+            "bwd": cc.composite_bwd_gaussians_cuda,
+            "conv3x3": k3.conv3x3_cuda, "conv3x3_hopper": k3.conv3x3_hopper,
+            "conv3x3_general": k3.conv3x3_general}
+
+
+def count_launches(fn):
+    """(fn()'s result, each kernel's launches counted from 0 in this call
+    alone)."""
+    import torch
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def check_images(tag, x, shape):
+    """x: finite, in [0, 1], of `shape`."""
+    import torch
+
+    if tuple(x.shape) != tuple(shape):
+        raise AssertionError(f"{tag}: shape {tuple(x.shape)} != {shape}")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{tag}: non-finite values")
+    lo, hi = float(x.min()), float(x.max())
+    if not (lo >= 0.0 and hi <= 1.0):
+        raise AssertionError(f"{tag}: values in [{lo}, {hi}]")
+
+
+def handoff(ts, sk, rcfg):
+    """The stage-1 -> stage-2 handoff: the state through state_to_ply and
+    state_from_ply (every field equal), then the 32 refine views at 1024^2
+    in sweeps of 4 (K1 only) and their pose maps."""
+    import tempfile
+
+    import torch
+    from gaussianip_tpu_torch.data.sampler import refine_orbit_batch
+    from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
+    from gaussianip_tpu_torch.model.ply import state_from_ply, state_to_ply
+    from gaussianip_tpu_torch.system.refine import render_refine_views
+
+    g = ts.gaussians
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "stage1.ply")
+        state_to_ply(g, path)
+        ply_bytes = os.path.getsize(path)
+        g2 = state_from_ply(path, capacity=g.capacity, device="cuda")
+    ply_s = time.perf_counter() - t0
+    same = {f: bool(torch.equal(getattr(g2, f), getattr(g, f)))
+            for f in PARAM_FIELDS}
+    if not (all(same.values()) and g2.n_active == g.n_active
+            and g2.max_sh_degree == g.max_sh_degree):
+        raise AssertionError(f"handoff: the .ply round trip changed the "
+                             f"state: {same}, n_active {g2.n_active} vs "
+                             f"{g.n_active}")
+    orbit = refine_orbit_batch(REFINE_VIEWS, 17.0, 1.5, 70.0, HIRES, HIRES,
+                               device="cuda")
+    t0 = time.perf_counter()
+    (images, poses), launches = count_launches(lambda: render_refine_views(
+        g2, orbit, sk.points3d, HIRES, HIRES, rcfg))
+    render_s = time.perf_counter() - t0
+    shape = (REFINE_VIEWS, HIRES, HIRES, 3)
+    check_images("handoff images", images, shape)
+    check_images("handoff pose maps", poses, shape)
+    want = {"fwd": REFINE_VIEWS // 4, "bwd": 0, "conv3x3": 0,
+            "conv3x3_hopper": 0, "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"handoff: launches {launches} != {want}")
+    covered = (images.amax(dim=-1) > 0).flatten(1).float().mean(1)
+    if not bool((covered > 0).all()):
+        raise AssertionError(f"handoff: empty views {covered.tolist()}")
+    log("handoff", n_active=g2.n_active, ply_bytes=ply_bytes,
+        ply_round_trip_s=round(ply_s, 3), views=REFINE_VIEWS,
+        render_and_pose_s=round(render_s, 3),
+        covered_share=spread(covered), launches=launches)
+    return g2, orbit, images, poses, launches
+
+
+def refine_call_inputs(models, contexts, images, poses, gen):
+    """One anchors call of the refine (store mode, 4 views, CFG batch 8)
+    on random latents: (latents, context, pose maps)."""
+    import torch
+    from gaussianip_tpu_torch.system.refine import ANCHOR_NAMES, view_index
+
+    idx = torch.tensor([view_index(n) for n in ANCHOR_NAMES], device="cuda")
+    s = images.shape[1] // models.vae.cfg.downscale
+    lat = torch.randn((len(idx), 4, s, s), generator=gen, device="cuda")
+    ctx = torch.cat([torch.stack([contexts[n][k] for n in ANCHOR_NAMES])
+                     for k in (0, 1)])
+    return lat, ctx, poses[idx].permute(0, 3, 1, 2)
+
+
+def check_sdpa():
+    """The largest attention of the refine: the level-0 self-attention of a
+    key-mode call at 1024^2, 8 CFG rows x 16384 queries over cat(self,
+    source) = 32768 keys, 8 heads of 40, bf16. Timed as the UNet calls it
+    and with only the fused backends (flash, memory-efficient) allowed,
+    which raises if neither takes it; peak memory beside each (the math
+    backend's scores alone would be 68.7 GB)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from gaussianip_tpu_torch.diffusion.blocks import attend
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((8, 16384, 320), generator=g, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn((8, 32768, 320), generator=g, device="cuda").to(
+        torch.bfloat16)
+    out = {}
+    for name, ctx in (("fused_only", lambda: sdpa_kernel(
+            [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION])),
+                      ("as_called", lambda: torch.no_grad())):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx():
+            out[f"{name}_ms"] = cuda_ms(lambda: attend(q, kv, kv, 8), 5, 1)
+        out[f"{name}_peak_gib"] = round(
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30, 3)
+    flop = 4.0 * 8 * 16384 * 32768 * 320
+    log("sdpa:key", shape="8x16384x320 over 32768 keys, 8 heads",
+        tflop=flop / 1e12, **{k: round(v, 4) for k, v in out.items()},
+        tflops=round(flop / out["as_called_ms"] / 1e9, 1))
+
+
+def check_refine_reference():
+    """The tiny stack's refine_views (1 step, 32 views at 32^2: the VAE,
+    anchors, keys and 6 dense groups, every stride-1 conv through K3) at
+    bf16 on the card against the same weights at float32 on the CPU."""
+    import torch
+    from gaussianip_tpu_torch.guidance.prompts import fake_text_encoder
+    from gaussianip_tpu_torch.system.pipeline import (
+        build_stub_guidance_stack, refine_models)
+    from gaussianip_tpu_torch.system.refine import (refine_contexts,
+                                                    refine_views)
+
+    r = REFINE_REF_RES
+    args = ("a person", "bad quality", r, SEED)
+    ref = build_stub_guidance_stack(*args, device="cpu")
+    card = build_stub_guidance_stack(*args, device="cuda", dtype=torch.bfloat16)
+    for a, b in zip(card.models, ref.models):
+        a.load_state_dict(b.state_dict())
+    g = torch.Generator().manual_seed(SEED)
+    imgs = torch.rand((REFINE_VIEWS, r, r, 3), generator=g)
+    poses = torch.rand((REFINE_VIEWS, r, r, 3), generator=g)
+    noise = torch.randn((4, r // 2, r // 2), generator=g)
+    ctx = refine_contexts(fake_text_encoder(77, 32), "a person",
+                          torch.full((4, 32), 0.01), torch.zeros((4, 32)),
+                          device="cpu")
+    outs, launches = [], None
+    for guid, d in ((ref, "cpu"), (card, "cuda")):
+        run = lambda: refine_views(
+            refine_models(guid), imgs.to(d), poses.to(d),
+            {k: v.to(d) for k, v in ctx.items()}, noise.to(d), num_steps=1)
+        out, launches = count_launches(run)
+        outs.append(out.float().cpu())
+    if launches["conv3x3"] == 0 or launches["conv3x3_general"] == 0:
+        raise AssertionError(f"refine_reference: the card's tiny stack did "
+                             f"not run K3's general variant: {launches}")
+    err = float((outs[1] - outs[0]).abs().max())
+    interior = float(((outs[0] > 0) & (outs[0] < 1)).float().mean())
+    if not err <= REFINE_REF_TOL:
+        raise AssertionError(f"refine_reference: card bf16 vs CPU f32 "
+                             f"{err} > {REFINE_REF_TOL}")
+    if not interior > REFINE_REF_INTERIOR:
+        raise AssertionError(f"refine_reference: only {interior} of the "
+                             f"pixels inside (0, 1): the clamp decides")
+    log("refine_reference", views=REFINE_VIEWS, res=r, max_abs_err=err,
+        mean_abs_err=float((outs[1] - outs[0]).abs().mean()),
+        tol=REFINE_REF_TOL, interior_share=round(interior, 4),
+        interior_floor=REFINE_REF_INTERIOR,
+        launches=launches)
+
+
+def vae_hires(vae, images):
+    """The VAE at 1024^2 on one chunk of 2 views: encode and decode ms
+    (CUDA events) and the peak memory above what was allocated before."""
+    import torch
+    from gaussianip_tpu_torch.system.refine import vae_decode, vae_encode
+
+    x = images[:2]
+    lat = vae_encode(vae, x)
+    out = {}
+    for name, fn in (("encode", lambda: vae_encode(vae, x)),
+                     ("decode", lambda: vae_decode(vae, lat))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{name}_ms"] = round(cuda_ms(fn, 2, 1), 3)
+        out[f"{name}_peak_gib"] = round(
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30, 3)
+    log("stage2:vae", images=2, res=x.shape[1], **out)
+    return out
+
+
+def stage2_phase(models, images, poses, contexts, gen):
+    """Full refine_views at 1024^2: 32 views, REFINE_STEPS steps. Wall
+    time, CUDA-event ms of each denoise call by phase and of the VAE encode
+    and decode, peak memory and each kernel's launches; the views are
+    finite, in [0, 1], of the input's shape and each changed from its
+    input. Returns (refined views, the stage-3 targets, launches)."""
+    import torch
+    from gaussianip_tpu_torch.system.refine import (CROP_X, CROP_Y,
+                                                    crop_and_downsample,
+                                                    refine_views)
+
+    s = images.shape[1] // models.vae.cfg.downscale
+    noise = torch.randn((4, s, s), generator=gen, device="cuda")
+    marks = []
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    refined, launches = count_launches(lambda: refine_views(
+        models, images, poses, contexts, noise, num_steps=REFINE_STEPS,
+        on_phase=on_phase))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_phase, prev = {}, start
+    for name, ev in marks:
+        by_phase.setdefault(name, []).append(prev.elapsed_time(ev))
+        prev = ev
+    check_images("stage2_refine", refined, images.shape)
+    changed = (refined - images).abs().flatten(1).mean(1)
+    if not bool((changed > 1e-3).all()):
+        raise AssertionError(f"stage2_refine: views unchanged: "
+                             f"{changed.tolist()}")
+    calls = REFINE_STEPS * REFINE_CALLS_PER_STEP
+    want = {"fwd": 0, "bwd": 0, "conv3x3": K3_SITES * calls,
+            "conv3x3_hopper": K3_SITES * calls, "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"stage2_refine: launches {launches} != {want}")
+    targets = crop_and_downsample(refined)
+    check_images("stage3 targets", targets, (
+        REFINE_VIEWS, (CROP_Y[1] - CROP_Y[0]) // 2,
+        (CROP_X[1] - CROP_X[0]) // 2, 3))
+    ms = {k: [round(x, 3) for x in v] for k, v in by_phase.items()}
+    mean = {k: round(float(np.mean(v)), 3) for k, v in by_phase.items()}
+    log("stage2_refine", views=REFINE_VIEWS, res=HIRES, steps=REFINE_STEPS,
+        denoise_calls=calls, wall_s=round(wall_s, 3),
+        ms_mean_by_phase=mean,
+        denoise_ms_total=round(sum(sum(by_phase[k]) for k in (
+            "anchors", "keys", "dense")), 3),
+        vae_encode_s=round(ms["encode"][0] / 1e3, 4),
+        vae_decode_s=round(ms["decode"][0] / 1e3, 4),
+        peak_gib=round(peak, 3), launches=launches,
+        change_mean_abs=spread(changed), targets=list(targets.shape))
+    log("stage2_refine:calls", **{k: v for k, v in ms.items()
+                                  if k not in ("encode", "decode")})
+    return refined, targets, launches
+
+
+def stage3_phase(gs, orbit, targets, gen):
+    """Stage-3 steps at the recipe's sizes (4 views at 1024^2, crop and
+    halve, 10 L1 + 15 LPIPS at VGG16 width with random weights) from the
+    handoff's state, with the densify after step index 100. Step times,
+    profiled device time and busy share, peak memory, losses, n_active
+    around the densify, launches; every parameter finite, and the L1 over
+    all 32 views lower after the steps than before. Returns (state,
+    launches, median ms per step)."""
+    import torch
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
+    from gaussianip_tpu_torch.ops.resize import linear_resize
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system.pipeline import build_random_lpips
+    from gaussianip_tpu_torch.system.stage1 import init_train_state
+    from gaussianip_tpu_torch.system.stage3 import (Stage3Config,
+                                                    draw_view_ids,
+                                                    make_stage3_step,
+                                                    render_turntable,
+                                                    train_stage3)
+
+    cfg = Stage3Config()  # the recipe's: 1024^2, crop [60:890, 220:800]
+    rcfg = RenderConfig(d_max=S3_D_MAX)
+    lpips = build_random_lpips(SEED, "cuda")
+    ts = init_train_state(gs)
+    ids = draw_view_ids(gen, REFINE_VIEWS, cfg.train_bs, S3_STEPS, "cuda")
+    noise = torch.randn((2, gs.capacity, 3), generator=gen, device="cuda")
+    stamps, logs = [], []
+
+    def on_step(i, m):  # metrics arrive as host floats: the step has ended
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    def views_l1(g):
+        """The step's L1 over every refine view (renders in sweeps of 4)."""
+        with torch.no_grad():
+            rgb = render_turntable(g, orbit, cfg.height, cfg.width, rcfg)
+            crop = rgb[:, cfg.crop_y[0]:cfg.crop_y[1],
+                       cfg.crop_x[0]:cfg.crop_x[1]].permute(0, 3, 1, 2)
+            small = linear_resize(crop, targets.shape[1], targets.shape[2])
+            return float((small.permute(0, 2, 3, 1) - targets).abs().mean())
+
+    l1_start = views_l1(gs)
+    def run():
+        stamps.append(time.perf_counter())
+        return train_stage3(ts, cfg, rcfg, AdamHyper(), orbit, targets, ids,
+                            noise, lpips_fn=lpips, log_every=1,
+                            log_fn=on_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    ts, launches = count_launches(run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"fwd": S3_STEPS, "bwd": S3_STEPS, "conv3x3": 0,
+            "conv3x3_hopper": 0, "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"stage3: launches {launches} != {want}")
+    for f in PARAM_FIELDS:
+        if not bool(torch.isfinite(getattr(ts.gaussians, f)).all()):
+            raise AssertionError(f"stage3: non-finite {f}")
+    step_ms = [float(x) for x in np.diff(stamps) * 1e3]
+    med = float(np.median(step_ms[S3_WARMUP:]))
+    k = cfg.densify_step
+    n_before, n_after = logs[k]["n_active"], logs[k + 1]["n_active"]
+    if n_after == n_before:
+        raise AssertionError(f"stage3: n_active {n_before} unchanged by the "
+                             f"densify after step {k}")
+    l1_end = views_l1(ts.gaussians)
+    if not l1_end < l1_start:
+        raise AssertionError(f"stage3: L1 over the {REFINE_VIEWS} views did "
+                             f"not fall: {l1_start} -> {l1_end}")
+    step_fn = make_stage3_step(cfg, rcfg, AdamHyper(), orbit, targets,
+                               lpips)
+    state = [ts]
+
+    def step():
+        state[0], _ = step_fn(state[0], ids[0])
+
+    dev_ms, busy = profile_window(step, 3, "profile_stage3")
+    log("stage3", steps=S3_STEPS, res=HIRES, views=cfg.train_bs,
+        median_ms_per_step=med, device_ms_per_step=round(dev_ms, 3),
+        device_busy_share=round(busy, 4), peak_gib=round(peak, 3),
+        loss_first=logs[0]["loss"], loss_last=logs[-1]["loss"],
+        lpips_first=logs[0]["lpips"], lpips_last=logs[-1]["lpips"],
+        l1_all_views_start=l1_start, l1_all_views_end=l1_end,
+        l1_steps_first10=float(np.mean([m["l1"] for m in logs[:10]])),
+        l1_steps_last10=float(np.mean([m["l1"] for m in logs[-10:]])),
+        densify_after_step=k, n_active_before=n_before,
+        n_active_after=n_after, launches=launches,
+        step_ms=[round(x, 2) for x in step_ms])
+    return ts, launches, med
+
+
+def turntable_phase(gs):
+    """The final avatar's turntable: eval_orbit_batch(..., "test") of the
+    recipe (144 body and 144 head views) at 1024^2 in sweeps of 4 (K1
+    only); total ms, frames finite and in [0, 1]."""
+    import torch
+    from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
+                                                   eval_orbit_batch)
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system.stage3 import render_turntable
+
+    orbit = eval_orbit_batch(CameraSamplerConfig(eval_height=HIRES,
+                                                 eval_width=HIRES),
+                             "test", device="cuda")
+    n = orbit.c2w.shape[0]
+    t0 = time.perf_counter()
+    frames, launches = count_launches(lambda: render_turntable(
+        gs, orbit, HIRES, HIRES, RenderConfig(d_max=S3_D_MAX)))
+    total_ms = (time.perf_counter() - t0) * 1e3
+    check_images("turntable", frames, (n, HIRES, HIRES, 3))
+    want = {"fwd": -(-n // 4), "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
+            "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"turntable: launches {launches} != {want}")
+    log("turntable", frames=n, res=HIRES, total_ms=round(total_ms, 3),
+        ms_per_frame=round(total_ms / n, 3), launches=launches)
+    return launches
+
+
+def kernel_bound(info, kind_, ops="ops"):
+    """(bound ms, "bytes" or "operations") of K1 ("fwd") or K2 ("bwd") from
+    check_kernels' counts."""
+    t_bytes = info[f"{kind_}_bytes"] / PEAK_BYTES * 1e3
+    t_ops = info[f"{kind_}_{ops}"] / PEAK_F32_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gaussianip_tpu_torch import _nvcc
     from gaussianip_tpu_torch.data.cameras import camera_from_c2w
     from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
@@ -770,8 +1210,10 @@ def main() -> int:
     from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
     from gaussianip_tpu_torch.render.render import RenderConfig
     from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.diffusion.scheduler import make_ddim_schedule
     from gaussianip_tpu_torch.system.pipeline import (
-        build_random_sd15_guidance)
+        build_random_sd15_guidance, random_refine_contexts, refine_models)
+    from gaussianip_tpu_torch.system.refine import make_refine_step
 
     dev = "cuda"
     # 1. device
@@ -863,29 +1305,56 @@ def main() -> int:
     log("guidance_stack", seconds=round(time.perf_counter() - t0, 2),
         params_m={k: round(sum(p.numel() for p in m.parameters()) / 1e6, 3)
                   for k, m in guidance.models._asdict().items()})
-    k3 = check_k3(conv_sites(guidance, gen, BATCH, RES), gen)
+    k3 = check_k3(conv_sites(guidance, gen, BATCH, RES, dev), gen, dev)
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
         GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
                         "conv3x3": K3_SITES * N_GUIDED,
                         "conv3x3_hopper": K3_SITES * N_GUIDED,
                         "conv3x3_general": 0})
-    layers = guided_layers(guidance, gen, BATCH, RES)
+    layers = guided_layers(guidance, gen, BATCH, RES, dev)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
         rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
                               - layers["denoise_ms"], 3))
     profile_steps(ts_g, cfg_g, cam_cfg, rcfg, guidance, sk.points3d, gen,
                   n=2, tag="profile_guided")
 
-    # 7. kernels line: K1/K2 timed at the stub-guided path's shapes,
-    # launches on the guided path (per path in launches_by_path); K3 summed
-    # over the guided step's 67 launches
-    def bound(kind_, ops="ops"):
-        t_bytes = info[f"{kind_}_bytes"] / PEAK_BYTES * 1e3
-        t_ops = info[f"{kind_}_{ops}"] / PEAK_F32_OPS * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                     else "operations")
+    # 7. stages 2 and 3 from the stub-trained, densified and pruned state:
+    # the handoff, K3 at the refine's conv shapes, the tiny refine on the
+    # card against the CPU, the refine at 1024^2, K1/K2 at stage 3's shapes,
+    # stage-3 steps and the turntable
+    g2, orbit, images, poses, launches_h = handoff(ts_p, sk, rcfg)
+    models = refine_models(guidance)
+    contexts = random_refine_contexts(SEED, dev)
+    run = make_refine_step(models, make_ddim_schedule(device=dev), 7.5, 0.6)
+    lat, ctx, ctrl = refine_call_inputs(models, contexts, images, poses, gen)
+    k3_r = check_k3(collect_conv_sites(
+        (models.controlnet, models.unet),
+        lambda: run(lat, 143, 122, ctx, ctrl, "store")), gen, dev,
+        tag="k3:refine")
+    profile_window(lambda: run(lat, 143, 122, ctx, ctrl, "store"), 2,
+                   "profile_refine")
+    check_sdpa()
+    check_refine_reference()
+    vae_hires(models.vae, images)
+    refined, targets, launches_r = stage2_phase(models, images, poses,
+                                                contexts, gen)
+    del refined
+    rcfg3 = RenderConfig(d_max=S3_D_MAX)
+    views = torch.tensor([24, 8, 16, 0], device=dev)  # front, back, sides
+    info3 = check_kernels(g2, camera_from_c2w(
+        orbit.c2w[views], orbit.fovy[views], HIRES, HIRES), rcfg3, gen,
+        "stage3", timing=True)
+    ts3, launches_3, _ = stage3_phase(g2, orbit, targets, gen)
+    launches_t = turntable_phase(ts3.gaussians)
 
+    # 8. kernels line: K1/K2 timed at the stub-guided path's shapes and at
+    # stage 3's, launches on the guided path and per path
+    # (launches_by_path); K3 summed over the guided step's 67 launches and
+    # over a refine denoise call's 67
+    by_path = {"stage1_stub": launches, "stage1_guided": launches_g,
+               "handoff": launches_h, "stage2_refine": launches_r,
+               "stage3": launches_3, "turntable": launches_t}
     src = "gaussianip_tpu_torch/csrc/composite.cu"
     kernels = []
     for kind_, name, rep, err in (
@@ -893,23 +1362,27 @@ def main() -> int:
              "gaussianip_tpu/render/composite_pallas.py:221", "fwd_err"),
             ("bwd", "K2 composite_bwd (per-gaussian reduction fused)",
              "gaussianip_tpu/render/composite_pallas.py:246", "bwd_err")):
-        b_ms, b_by = bound(kind_)
+        b_ms, b_by = kernel_bound(info, kind_)
+        b3_ms, b3_by = kernel_bound(info3, kind_)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches_g[kind_], "launches_by_path": {
-                "stage1_stub": launches[kind_],
-                "stage1_guided": launches_g[kind_]},
+                k: v[kind_] for k, v in by_path.items()},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "first_bound_ms": bound(kind_, "first_ops")[0]})
+            "first_bound_ms": kernel_bound(info, kind_, "first_ops")[0],
+            "stage3": {
+                "shape": f"4 x {HIRES}^2, d_max {S3_D_MAX}",
+                "max_abs_err": info3[err], "ms": info3[f"{kind_}_ms"],
+                "plain_ms": info3[f"{kind_}_plain_ms"], "bound_ms": b3_ms,
+                "bound_by": b3_by, "library_ms": None}})
     kernels.append({
         "name": "K3 conv3x3", "route": "cuda",
         "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",
         "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
         "launches": launches_g["conv3x3"], "launches_by_path": {
-            "stage1_stub": launches["conv3x3"],
-            "stage1_guided": launches_g["conv3x3"]},
+            k: v["conv3x3"] for k, v in by_path.items()},
         "launches_by_variant": {
             "hopper": launches_g["conv3x3_hopper"],
             "general": launches_g["conv3x3_general"]},
@@ -917,7 +1390,17 @@ def main() -> int:
         "prev_ms": k3["prev_ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
-        "per": f"guided step ({K3_SITES} launches)"})
+        "per": f"guided step ({K3_SITES} launches)",
+        "stage2_refine": {
+            "per": f"refine denoise call ({K3_SITES} launches, CFG batch 8 "
+                   f"at {HIRES // 8}^2 latents)",
+            "launches_by_variant": {
+                "hopper": launches_r["conv3x3_hopper"],
+                "general": launches_r["conv3x3_general"]},
+            "max_abs_err": k3_r["max_abs_err"], "ms": k3_r["ms"],
+            "prev_ms": k3_r["prev_ms"], "plain_ms": k3_r["plain_ms"],
+            "bound_ms": k3_r["bound_ms"], "bound_by": k3_r["bound_by"],
+            "library_ms": k3_r["library_ms"]}})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

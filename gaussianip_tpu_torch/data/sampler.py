@@ -192,3 +192,29 @@ def eval_orbit_batch(cfg: CameraSamplerConfig, split: str = "val",
         camera_distances=cat(d_b, d_h),
         fovy=cat(fovy, fovy),
     )
+
+
+def refine_orbit_batch(n_views: int, elevation_deg: float, distance: float,
+                       fovy_deg: float, height: int, width: int,
+                       device="cuda") -> CameraBatch:
+    """The stage-2 refinement orbit: n_views azimuths evenly over
+    [-180, 180) at one elevation, distance and fovy, looking at the
+    origin."""
+    azimuth_deg = torch.linspace(-180.0, 180.0, n_views + 1,
+                                 device=device)[:n_views]
+    elev = torch.full((n_views,), float(elevation_deg), device=device)
+    d = torch.full((n_views,), float(distance), device=device)
+    fovy = deg2rad(torch.full((n_views,), float(fovy_deg), device=device))
+    pos = spherical_to_position(deg2rad(elev), deg2rad(azimuth_deg), d)
+    up = torch.tensor([[0.0, 0, 1]], device=device).expand(n_views, 3)
+    c2w = look_at_c2w(pos, torch.zeros((n_views, 3), device=device), up)
+    proj = gl_projection_matrix(fovy, width / height, 0.1, 1000.0)
+    return CameraBatch(
+        mvp_mtx=get_mvp_matrix(c2w, proj),
+        c2w=c2w,
+        center_z=torch.zeros((n_views,), device=device),
+        elevation_deg=elev,
+        azimuth_deg=azimuth_deg,
+        camera_distances=d,
+        fovy=fovy,
+    )

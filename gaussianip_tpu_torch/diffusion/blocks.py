@@ -5,9 +5,17 @@ Submodules carry the flax names (`norm1`, `conv1`, `to_q.main`, ...), so
 `diffusion/from_flax.py` is a tree walk. Attention runs
 F.scaled_dot_product_attention, as the JAX package runs XLA's
 dot_product_attention; its chunked online-softmax path is an XLA memory
-workaround with the same result and is not ported. Attention is the `off`
-VCR mode only (the store / key / dense modes belong to stage 2). Sequences
-are [B, S, D].
+workaround with the same result and is not ported. Sequences are [B, S, D].
+
+Stage 2's VCR mutual attention rides on the self-attention of the first
+transformer block of a Transformer2D, as an op dict `vcr`:
+  {"mode": "store"}: plain self-attention; the block returns the hidden
+    states the layer received (its norm1 output) for later views;
+  {"mode": "key", "src": [B, S', D]}: attends over cat(self, src) along
+    the sequence, and also stores;
+  {"mode": "dense", "src_l", "src_r": [B, S', D], "w_l", "w_r",
+    "lambda_self": floats}: lambda_self * self-attention + (1 -
+    lambda_self) * (w_l * attention into src_l + w_r * into src_r).
 """
 
 from __future__ import annotations
@@ -107,7 +115,9 @@ def attend(q, k, v, heads: int) -> torch.Tensor:
 class Attention(nn.Module):
     """Self- or cross-attention with LoRA and IP-Adapter tokens: with
     `ip_tokens` > 0 the last ip_tokens of the context attend through
-    to_k_ip / to_v_ip and add with `ip_scale`."""
+    to_k_ip / to_v_ip and add with `ip_scale`. Self-attention takes a VCR
+    op (`vcr`, see the module docstring); what `store` and `key` keep is
+    `hidden_states` itself, which the caller holds."""
 
     def __init__(self, query_dim: int, heads: int,
                  cross_attention_dim: int | None = None, lora_rank: int = 0,
@@ -127,19 +137,32 @@ class Attention(nn.Module):
             self.to_k_ip = Dense(kv_dim, d, False, dtype)
             self.to_v_ip = Dense(kv_dim, d, False, dtype)
 
+    def _over(self, q, kv):
+        return attend(q, self.to_k(kv), self.to_v(kv), self.heads)
+
     def forward(self, hidden_states, encoder_hidden_states=None,
-                ip_scale: float = 1.0):
+                ip_scale: float = 1.0, vcr: dict | None = None):
         q = self.to_q(hidden_states)
-        ctx = (hidden_states if encoder_hidden_states is None
-               else encoder_hidden_states)
+        mode = "off" if vcr is None else vcr["mode"]
         if encoder_hidden_states is not None and self.ip_tokens > 0:
-            txt = ctx[:, :-self.ip_tokens]
-            ip = ctx[:, -self.ip_tokens:]
-            out = attend(q, self.to_k(txt), self.to_v(txt), self.heads)
+            txt = encoder_hidden_states[:, :-self.ip_tokens]
+            ip = encoder_hidden_states[:, -self.ip_tokens:]
+            out = self._over(q, txt)
             out = out + ip_scale * attend(q, self.to_k_ip(ip),
                                           self.to_v_ip(ip), self.heads)
+        elif encoder_hidden_states is not None:
+            out = self._over(q, encoder_hidden_states)
+        elif mode == "key":
+            out = self._over(q, torch.cat([hidden_states, vcr["src"]], 1))
+        elif mode == "dense":
+            lam = vcr["lambda_self"]
+            out = lam * self._over(q, hidden_states) + (1.0 - lam) * (
+                vcr["w_l"] * self._over(q, vcr["src_l"])
+                + vcr["w_r"] * self._over(q, vcr["src_r"]))
+        elif mode in ("off", "store"):
+            out = self._over(q, hidden_states)
         else:
-            out = attend(q, self.to_k(ctx), self.to_v(ctx), self.heads)
+            raise ValueError(f"unknown VCR mode {mode!r}")
         return self.to_out(out)
 
 
@@ -170,15 +193,23 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, 1e-5, dtype)
         self.ff = FeedForward(dim, dtype=dtype)
 
-    def forward(self, x, context, ip_scale: float = 1.0):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, ip_scale: float = 1.0,
+                vcr: dict | None = None):
+        """-> (x, the self-attention's input in the store / key VCR modes,
+        else None)."""
+        h = self.norm1(x)
+        stored = h if vcr is not None and vcr["mode"] in ("store",
+                                                         "key") else None
+        x = x + self.attn1(h, vcr=vcr)
         x = x + self.attn2(self.norm2(x), context, ip_scale)
-        return x + self.ff(self.norm3(x))
+        return x + self.ff(self.norm3(x)), stored
 
 
 class Transformer2D(nn.Module):
     """GroupNorm -> 1x1 conv in -> transformer block(s) -> 1x1 conv out,
-    residual (diffusers Transformer2DModel, use_linear_projection=False)."""
+    residual (diffusers Transformer2DModel, use_linear_projection=False).
+    A VCR op goes to the first block only; returns (out, its stored
+    states or None)."""
 
     def __init__(self, channels: int, heads: int, cross_attention_dim: int,
                  n_blocks: int = 1, lora_rank: int = 0, ip_tokens: int = 0,
@@ -193,14 +224,16 @@ class Transformer2D(nn.Module):
         self.n_blocks = n_blocks
         self.proj_out = Conv(channels, channels, 1, dtype=dtype)
 
-    def forward(self, x, context, ip_scale: float = 1.0):
+    def forward(self, x, context, ip_scale: float = 1.0,
+                vcr: dict | None = None):
         b, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        for i in range(self.n_blocks):
-            y = getattr(self, f"block_{i}")(y, context, ip_scale)
+        y, stored = self.block_0(y, context, ip_scale, vcr)
+        for i in range(1, self.n_blocks):
+            y, _ = getattr(self, f"block_{i}")(y, context, ip_scale)
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(y) + x
+        return self.proj_out(y) + x, stored
 
 
 class Downsample(nn.Module):

@@ -2,9 +2,11 @@
 ControlNet (port of gaussianip_tpu/diffusion/unet.py), NCHW in
 channels_last memory.
 
-The UNet runs the `off` VCR mode only (the cross-view attention modes are
-stage 2's). Heads: `attention_head_dim` is the head COUNT (8), as in the
-JAX package. Submodules carry the flax names.
+Stage 2's VCR modes (`store`, `key`, `dense`, see diffusion/blocks.py)
+ride on the self-attention of the up blocks' transformers (every up block
+but the first, `layers_per_block + 1` each: 9 layers at SD1.5 widths).
+Heads: `attention_head_dim` is the head COUNT (8), as in the JAX package.
+Submodules carry the flax names.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ class UNetConfig:
     ip_tokens: int = 0
     dtype: torch.dtype = torch.float32
 
+    @property
+    def n_vcr_layers(self) -> int:
+        return (len(self.block_out_channels) - 1) * (self.layers_per_block
+                                                     + 1)
+
 
 def tiny_unet_config(**kw) -> UNetConfig:
     """Small config for tests."""
@@ -55,6 +62,20 @@ def _transformer(cfg: UNetConfig, ch: int, adapters: bool):
                          lora_rank=cfg.lora_rank if adapters else 0,
                          ip_tokens=cfg.ip_tokens if adapters else 0,
                          groups=cfg.norm_groups, dtype=cfg.dtype)
+
+
+def _vcr_op(mode: str, cache, weights, layer: int) -> dict | None:
+    """The VCR op of up-path layer `layer` (see diffusion/blocks.py)."""
+    if mode == "off":
+        return None
+    if mode == "store":
+        return {"mode": "store"}
+    if mode == "key":
+        return {"mode": "key", "src": cache[layer]}
+    if mode == "dense":
+        return {"mode": "dense", "src_l": cache[0][layer],
+                "src_r": cache[1][layer], **weights}
+    raise ValueError(f"unknown VCR mode {mode!r}")
 
 
 class _DownMid(nn.Module):
@@ -105,14 +126,14 @@ class _DownMid(nn.Module):
             for li in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{bi}_res_{li}")(h, temb)
                 if bi < len(chs) - 1:
-                    h = getattr(self, f"down_{bi}_attn_{li}")(h, context,
-                                                              ip_scale)
+                    h, _ = getattr(self, f"down_{bi}_attn_{li}")(
+                        h, context, ip_scale)
                 res.append(h)
             if bi < len(chs) - 1:
                 h = getattr(self, f"down_{bi}_downsample")(h)
                 res.append(h)
         h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h, context, ip_scale)
+        h, _ = self.mid_attn(h, context, ip_scale)
         return self.mid_res_1(h, temb), res
 
 
@@ -143,11 +164,17 @@ class UNet2DConditionModel(_DownMid):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 down_block_residuals=None, mid_block_residual=None,
-                ip_scale: float = 1.0):
+                ip_scale: float = 1.0, vcr_mode: str = "off",
+                vcr_cache=None, vcr_weights: dict | None = None):
         """sample [B, C, h, w] latents, timesteps [B], context [B, S, D];
         ControlNet residuals add to the skips and the mid output. Returns
         the noise prediction [B, out_channels, h, w] at the config's
-        dtype."""
+        dtype; with a VCR mode other than "off", the pair (prediction,
+        cache): in `store` and `key` modes the list of the VCR layers'
+        stored [B, S_l, D_l] states in layer order, in `dense` None.
+        vcr_cache: `key`, one source [B, S_l, D_l] per VCR layer; `dense`,
+        a pair of such lists (left, right); vcr_weights: `dense`, {"w_l",
+        "w_r", "lambda_self"}."""
         cfg = self.cfg
         temb = self._temb(timesteps)
         h, res = self._down_mid(self._conv_in(sample), temb,
@@ -157,16 +184,24 @@ class UNet2DConditionModel(_DownMid):
         if mid_block_residual is not None:
             h = h + mid_block_residual
         n = len(cfg.block_out_channels)
+        cache, layer = [], 0
         for bi in range(n):
             for li in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, res.pop()], dim=1)
                 h = getattr(self, f"up_{bi}_res_{li}")(h, temb)
                 if bi > 0:
-                    h = getattr(self, f"up_{bi}_attn_{li}")(
-                        h, encoder_hidden_states, ip_scale)
+                    h, stored = getattr(self, f"up_{bi}_attn_{li}")(
+                        h, encoder_hidden_states, ip_scale,
+                        _vcr_op(vcr_mode, vcr_cache, vcr_weights, layer))
+                    if stored is not None:
+                        cache.append(stored)
+                    layer += 1
             if bi < n - 1:
                 h = getattr(self, f"up_{bi}_upsample")(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        out = self.conv_out(F.silu(self.conv_norm_out(h)))
+        if vcr_mode == "off":
+            return out
+        return out, (cache if vcr_mode in ("store", "key") else None)
 
 
 class ControlNetModel(_DownMid):

@@ -9,6 +9,9 @@ of gaussianip_tpu/system/pipeline.py).
     encoders and insightface are not in the repository; their loaders are
     not ported yet.
   * `build_stub_guidance_stack`: the tiny weight-free stack for smoke runs.
+  * Stage 2 runs the same UNet, ControlNet and VAE (`refine_models`), with
+    identity tokens at s_scale 0.5 (`random_refine_contexts`); stage 3's
+    LPIPS at VGG16 width with random weights is `build_random_lpips`.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..diffusion.ip_adapter import ProjPlusModel
+from ..diffusion.lpips import LPIPS, VGG16_STAGES
 from ..diffusion.unet import (
     ControlNetModel,
     UNet2DConditionModel,
@@ -34,6 +38,7 @@ from ..guidance.ipa import (
     compute_image_embeds,
 )
 from ..guidance.prompts import fake_text_encoder, make_prompt_embeddings
+from .refine import RefineModels, refine_contexts, refine_identity_tokens
 
 # configs/exp.yaml system.prompt_processor.prompt and
 # system.guidance.negative_prompt_faceid
@@ -92,6 +97,17 @@ def _scale_zero_convs_(cn: ControlNetModel):
                 p.mul_(ZERO_CONV_SCALE)
 
 
+def _random_faces(gen: torch.Generator, device):
+    """A random ProjPlusModel (bf16), two random unit ArcFace vectors [2,
+    512] (the positive and the irrelevant face) and three random CLIP
+    hidden states [3, 1, 257, 1280] (positive, irrelevant, zero image)."""
+    proj = _build(lambda: ProjPlusModel(dtype=torch.bfloat16), gen, device)
+    ids = torch.randn((2, 512), generator=gen, device=device)
+    ids = ids / torch.linalg.vector_norm(ids, dim=-1, keepdim=True)
+    clip = torch.randn((3, 1, 257, 1280), generator=gen, device=device)
+    return proj, ids, clip
+
+
 def build_random_sd15_guidance(seed: int = 0,
                                device="cuda") -> AHDSGuidance:
     """The recipe's guidance stack at full width with random weights from
@@ -108,10 +124,7 @@ def build_random_sd15_guidance(seed: int = 0,
                 device)
     _scale_zero_convs_(cn)
     vae = _build(lambda: AutoencoderKL(VAEConfig(dtype=dtype)), gen, device)
-    proj = _build(lambda: ProjPlusModel(dtype=dtype), gen, device)
-    ids = torch.randn((2, 512), generator=gen, device=device)
-    ids = ids / torch.linalg.vector_norm(ids, dim=-1, keepdim=True)
-    clip = torch.randn((3, 1, 257, 1280), generator=gen, device=device)
+    proj, ids, clip = _random_faces(gen, device)
     img = compute_image_embeds(proj, ids[:1], ids[1:], clip[0], clip[1],
                                clip[2], s_scale=0.4)
     pe = make_prompt_embeddings(fake_text_encoder(77, 768), RECIPE_PROMPT,
@@ -146,3 +159,36 @@ def build_stub_guidance_stack(prompt: str, negative_prompt: str,
                       neg=torch.zeros((1, 4, 32), device=device))
     gcfg = GuidanceConfig(image_size=image_size)
     return AHDSGuidance(GuidanceModels(unet, cn, vae), pe, img, gcfg)
+
+
+def refine_models(guidance: AHDSGuidance) -> RefineModels:
+    """Stage 2's models: the guidance stack's UNet (LoRA folded, 4 IP
+    tokens), ControlNet and VAE, which the recipe loads from the same
+    checkpoints for both stages."""
+    return RefineModels(*guidance.models)
+
+
+def random_refine_contexts(seed: int = 0, device="cuda") -> dict:
+    """The 32 views' (negative, positive) [2, 81, 768] contexts at full
+    width: fake 77 x 768 text of the recipe's prompt with each view's
+    suffix, and identity tokens from a random ProjPlusModel (s_scale 0.5,
+    shortcut) on a random unit ArcFace vector and random CLIP hidden
+    states, zeros for the uncond row."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    proj, ids, clip = _random_faces(gen, device)
+    ip_cond, ip_uncond = refine_identity_tokens(proj, ids[:1], clip[0],
+                                                clip[2])
+    return refine_contexts(fake_text_encoder(77, 768), RECIPE_PROMPT,
+                           ip_cond, ip_uncond, device)
+
+
+def build_random_lpips(seed: int = 0, device="cuda") -> LPIPS:
+    """Stage 3's LPIPS at VGG16 width with seeded random weights: lecun
+    normal convs, zero biases, N(0, 1/C) linear heads (the distance takes
+    their |w|), float32; frozen."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m = _build(lambda: LPIPS(VGG16_STAGES), gen, device)
+    with torch.no_grad():
+        for i, (ch, _) in enumerate(VGG16_STAGES):
+            getattr(m, f"lin_{i}").normal_(0.0, 1.0 / ch, generator=gen)
+    return m.requires_grad_(False)
