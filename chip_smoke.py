@@ -25,13 +25,21 @@ K3 against its plain version at every conv shape of a refine denoise call
 the tiny stack's refine on the card against the CPU, the VCR refinement
 at 1024^2 (stage 2), K1/K2 against their plain versions at 1024^2 x 4,
 stage-3 steps with a random-weight LPIPS at VGG16 width across the
-densify, and the turntable. Prints one line per phase, a `kernels` JSON
+densify, and the turntable. Last, the port's command line
+(gaussianip_tpu_torch/launch.py) with --stub-guidance at the recipe's
+sizes: stage 1 with validation, a checkpoint, a densify and a prune, its
+--resume, stage 2, and stage 3 in a child process that runs the launch
+module as `python -m` does, each stage's run files and kernel launches
+checked, and K1/K2 (on the stub-trained state) and the tiny stack's refine
+held against their plain versions at the command line's shapes. Prints
+one line per phase, a `kernels` JSON
 line, the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failed phase exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -124,6 +132,22 @@ REFINE_REF_TOL = 6e-2
 # comparison needs, so that vae_decode's clamp does not decide it (the
 # same floor as the CPU parity test's)
 REFINE_REF_INTERIOR = 0.2
+# the port's command line (gaussianip_tpu_torch/launch.py) on configs/
+# exp.yaml with --stub-guidance at the recipe's sizes: stage 1 for
+# CLI_STEPS steps with validation and a checkpoint after step index 10, a
+# densify after 5 and a prune after 15; a --resume of it from that
+# checkpoint (step 11) to CLI_STEPS; stage 2; stage 3 for CLI_STEPS steps
+# in a child process (the turntable: the recipe's 144 + 144 test views)
+CLI_STEPS = 20
+CLI_CKPT_STEP = 11
+CLI_OVERRIDES = (
+    "trainer.log_every_n_steps=1", "trainer.val_check_interval=10",
+    "trainer.ckpt_every_n_steps=10", "system.densify_prune_start_step=4",
+    "system.densify_prune_end_step=9", "system.densify_prune_interval=5",
+    "system.prune_only_start_step=9", "system.prune_only_end_step=16",
+    "system.prune_only_interval=15")
+CLI_STUB_SIZE = 64  # launch.py's default system.stub_image_size
+CLI_TEST_FRAMES = 288
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
 # package's tiled compositor deviates from its dense oracle by 1.4e-3 on
@@ -661,13 +685,14 @@ def check_k3(sites, gen, dev="cuda", tag: str = "k3"):
     return tot
 
 
-def check_guidance_reference(dev="cuda"):
+def check_guidance_reference(dev="cuda") -> dict:
     """The tiny guidance stack (system/pipeline.py:build_stub_guidance_stack)
     at bf16 on the card, every stride-1 conv through K3, against the same
     weights at float32 on the CPU, the path the CPU tests hold against the
     JAX package: the VAE latents of 4 renders at 64^2 and the gradient of a
     random projection of them to the renders, and one ControlNet + UNet
-    pass on the 12-sample CFG batch."""
+    pass on the 12-sample CFG batch. Returns each output's worst |diff|
+    relative to its largest |value|."""
     import torch
     from gaussianip_tpu_torch.ops.conv3x3_cuda import (conv3x3_cuda,
                                                        conv3x3_general)
@@ -713,6 +738,7 @@ def check_guidance_reference(dev="cuda"):
     log("guidance_reference", rel_err=errs, tol=GUIDANCE_REF_TOL,
         k3_general_launches=conv3x3_general.launches - general,
         k3_launches=conv3x3_cuda.launches - launches)
+    return errs
 
 
 def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
@@ -933,10 +959,11 @@ def check_sdpa():
         tflops=round(flop / out["as_called_ms"] / 1e9, 1))
 
 
-def check_refine_reference():
-    """The tiny stack's refine_views (1 step, 32 views at 32^2: the VAE,
+def check_refine_reference(r: int = REFINE_REF_RES) -> float:
+    """The tiny stack's refine_views (1 step, 32 views at r^2: the VAE,
     anchors, keys and 6 dense groups, every stride-1 conv through K3) at
-    bf16 on the card against the same weights at float32 on the CPU."""
+    bf16 on the card against the same weights at float32 on the CPU.
+    Returns the worst |diff|."""
     import torch
     from gaussianip_tpu_torch.guidance.prompts import fake_text_encoder
     from gaussianip_tpu_torch.system.pipeline import (
@@ -944,7 +971,6 @@ def check_refine_reference():
     from gaussianip_tpu_torch.system.refine import (refine_contexts,
                                                     refine_views)
 
-    r = REFINE_REF_RES
     args = ("a person", "bad quality", r, SEED)
     ref = build_stub_guidance_stack(*args, device="cpu")
     card = build_stub_guidance_stack(*args, device="cuda", dtype=torch.bfloat16)
@@ -980,6 +1006,7 @@ def check_refine_reference():
         tol=REFINE_REF_TOL, interior_share=round(interior, 4),
         interior_floor=REFINE_REF_INTERIOR,
         launches=launches)
+    return err
 
 
 def vae_hires(vae, images):
@@ -1187,6 +1214,360 @@ def turntable_phase(gs):
     return launches
 
 
+def npz_shapes(path) -> dict:
+    """name -> (shape, dtype) of each array in an .npz, from the headers
+    (the arrays are not read)."""
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                read = {(1, 0): np.lib.format.read_array_header_1_0,
+                        (2, 0): np.lib.format.read_array_header_2_0}[
+                    np.lib.format.read_magic(f)]
+                shape, _, dtype = read(f)
+            out[name[:-4]] = (shape, str(dtype))
+    return out
+
+
+class StepClock:
+    """A logging handler that stamps each `step i:` line of the port's
+    logger (one a step with trainer.log_every_n_steps=1; the metrics are
+    host floats then, so the step has ended)."""
+
+    def __init__(self):
+        import logging
+
+        self.stamps = []
+        clock = self
+
+        class _Handler(logging.Handler):
+            def emit(self, record):
+                if record.getMessage().startswith("step "):
+                    clock.stamps.append(time.perf_counter())
+
+        self.handler = _Handler()
+
+    def __enter__(self):
+        import logging
+
+        logging.getLogger("gaussianip_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("gaussianip_tpu_torch").removeHandler(self.handler)
+
+    def median_ms(self, warmup: int = 2) -> float:
+        return float(np.median(np.diff(self.stamps)[warmup:] * 1e3))
+
+
+@contextlib.contextmanager
+def watch_calls(*targets):
+    """For one block, wraps each (module, name) that the command line looks
+    up at call time: yields {name: [(seconds, result if a bool else None),
+    ...]}, each call's seconds taken after a CUDA sync."""
+    import torch
+
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(fn, name):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls[name].append((time.perf_counter() - t0,
+                                out if isinstance(out, bool) else None))
+            return out
+        return timed
+
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(fn, name))
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# stage 3 in a child process: the launch module run as `python -m` runs it
+# (runpy, run_name "__main__"), then the child's kernel launch counts
+STAGE3_CHILD = (
+    "import json, runpy\n"
+    "import chip_smoke\n"
+    "runpy.run_module('gaussianip_tpu_torch.launch', run_name='__main__',"
+    " alter_sys=True)\n"
+    "print('launches=' + json.dumps({k: c.launches for k, c in "
+    "chip_smoke.kernel_counters().items()}), flush=True)\n")
+
+
+def cli_kernel_checks(cfg, ply, gen):
+    """K1 and the fused K2 against their plain versions at the command
+    line's shapes, on its stub-trained state (the stage-1 .ply, loaded as
+    stage 3 loads it): the validation render (1 x 1024^2, d_max 16), a
+    handoff sweep (4 x 1024^2, d_max 16) and a stage-3 step (4 x
+    (2 * stub_image_size)^2, RenderConfig())."""
+    from gaussianip_tpu_torch import launch
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.data.sampler import (eval_orbit_batch,
+                                                   refine_orbit_batch)
+    from gaussianip_tpu_torch.model.ply import state_from_ply
+    from gaussianip_tpu_torch.render.render import RenderConfig
+
+    g = state_from_ply(ply, device="cuda")
+    sys_cfg = cfg["system"]
+
+    def orbit(res):
+        return refine_orbit_batch(
+            REFINE_VIEWS, float(sys_cfg["refine_elevation"]),
+            float(sys_cfg["refine_camera_distance"]),
+            float(sys_cfg["refine_fovy_deg"]), res, res, "cuda")
+
+    val = eval_orbit_batch(launch.camera_config(cfg), "val", "cuda")
+    h3 = 2 * CLI_STUB_SIZE
+    stage3_views = [24, 8, 16, 0]
+    shapes = {
+        "val": (f"1 x {HIRES}^2, d_max {D_MAX}", camera_from_c2w(
+            val.c2w[0:1], val.fovy[0:1], HIRES, HIRES), D_MAX),
+        "handoff": (f"4 x {HIRES}^2, d_max {D_MAX}", camera_from_c2w(
+            orbit(HIRES).c2w[0:4], orbit(HIRES).fovy[0:4], HIRES, HIRES),
+            D_MAX),
+        "stage3": (f"4 x {h3}^2, d_max {S3_D_MAX}", camera_from_c2w(
+            orbit(h3).c2w[stage3_views], orbit(h3).fovy[stage3_views], h3,
+            h3), S3_D_MAX)}
+    out = {}
+    for tag, (shape, cams, d_max) in shapes.items():
+        info = check_kernels(g, cams, RenderConfig(d_max=d_max), gen,
+                             f"cli:{tag}", timing=False)
+        out[tag] = {"shape": shape, "fwd_err": info["fwd_err"],
+                    "bwd_err": info["bwd_err"]}
+    return out
+
+
+def cli_phase():
+    """The port's command line on the card in a temporary log directory:
+    stage 1 and its --resume and stage 2 in-process through
+    launch.main, stage 3 in a child process that runs the launch module as
+    `python -m` does. Asserts each stage's run.json, the handoff files'
+    shapes, the PNGs (decoded by the port's reader), last.ply, the video,
+    the resumed step count, each stage's kernel launches (K1 and K2 in
+    stages 1 and 3, K3 in stages 1 and 2; stage 3's counted in the child)
+    and that the densify and the prune fired once each. Holds K1/K2 (on
+    the stub-trained state) and the tiny stack's refine (K3) against their
+    plain versions at the command line's shapes. Returns {"launches":
+    {stage: launches}, "kernels": cli_kernel_checks, "refine_err": the
+    refine's worst |diff|}."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+    from gaussianip_tpu_torch import launch
+    from gaussianip_tpu_torch.model.ply import state_from_ply
+    from gaussianip_tpu_torch.system import refine as refine_mod
+    from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.utils import native_io, saving
+    from gaussianip_tpu_torch.utils.checkpoint import LEAF_ORDER
+    from gaussianip_tpu_torch.utils.config import load_config
+    from gaussianip_tpu_torch.utils.saving import read_png
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "configs", "exp.yaml")
+    log_path = tempfile.mkdtemp(prefix="gip_cli_")
+    root = os.path.join(log_path, "cli")
+    args = ["--config", config, "--cur_time", "cli", "--stub-guidance",
+            f"system.log_path={log_path}", *CLI_OVERRIDES]
+    # count the densify and prune calls of the stage-1 loop
+    fired = {"densify": [], "prune": []}
+    make_fns = s1.make_densify_fns
+
+    def counted_densify_fns(cfg):
+        densify, prune = make_fns(cfg)
+
+        def d(ts, gen):
+            out = densify(ts, gen)
+            fired["densify"].append((ts.gaussians.n_active,
+                                     out[0].gaussians.n_active))
+            return out
+
+        def p(ts):
+            out = prune(ts)
+            fired["prune"].append((ts.gaussians.n_active,
+                                   out.gaussians.n_active))
+            return out
+
+        return d, p
+
+    def manifest():
+        with open(os.path.join(root, "run.json")) as f:
+            return json.load(f)
+
+    def want(stage, got, fwd, bwd, k3):
+        """Launch counts: fwd and bwd exact, K3 > 0 when k3 else 0."""
+        if not (got["fwd"] == fwd and got["bwd"] == bwd and (
+                got["conv3x3"] > 0 if k3 else got["conv3x3"] == 0) and
+                got["conv3x3"] == got["conv3x3_hopper"]
+                + got["conv3x3_general"]):
+            raise AssertionError(f"cli {stage}: launches {got}; want K1 "
+                                 f"{fwd}, K2 {bwd}, K3 "
+                                 f"{'> 0' if k3 else 0}")
+
+    # the stage-1 calls that chip_smoke times (the run manifest holds
+    # launch.py's keys only)
+    stage1_calls = ((s1, "train_stage1"), (refine_mod, "render_refine_views"),
+                    (np, "savez"), (saving, "save_image"),
+                    (native_io, "write_png_async"))
+
+    def handoff_write_s(calls):
+        """The handoff's npz (the last savez: checkpoints come before it)
+        and its 32 PNGs."""
+        return calls["savez"][-1][0] + sum(
+            s for s, _ in calls["save_image"][-REFINE_VIEWS:])
+
+    out = {}
+    try:
+        s1.make_densify_fns = counted_densify_fns
+        t0 = time.perf_counter()
+        with StepClock() as clock, watch_calls(*stage1_calls) as calls:
+            _, got = count_launches(lambda: launch.main(
+                [*args, "--train", "--stage", "stage1", "--max_steps",
+                 str(CLI_STEPS)]))
+        wall1 = time.perf_counter() - t0
+        m = manifest()
+        # CLI_STEPS steps, 1 validation render, 8 handoff sweeps of 4
+        want("stage1", got, CLI_STEPS + 1 + REFINE_VIEWS // 4, CLI_STEPS,
+             True)
+        out["stage1"] = got
+        for k, v in {"stage1": "done", "stage1_steps": CLI_STEPS,
+                     "device": "cuda", "compute_dtype": "bfloat16",
+                     "precision_policy": {"matmul_tf32": False,
+                                          "cudnn_tf32": False},
+                     "stage_requested": "stage1"}.items():
+            if m.get(k) != v:
+                raise AssertionError(f"cli stage1: run.json {k} = "
+                                     f"{m.get(k)!r}, want {v!r}")
+        if [len(fired["densify"]), len(fired["prune"])] != [1, 1]:
+            raise AssertionError(f"cli stage1: densify/prune fired {fired}")
+        native = [r for _, r in calls["write_png_async"]]
+        if len(native) != 1:
+            raise AssertionError(f"cli stage1: {len(native)} validation "
+                                 f"PNGs, want 1")
+        ck = os.path.join(root, "ckpt", "stage1_latest.npz")
+        with np.load(ck) as d:
+            ck_step = int(d[f"leaf_{LEAF_ORDER.index('step')}"])
+        if ck_step != CLI_CKPT_STEP:
+            raise AssertionError(f"cli stage1: checkpoint at step {ck_step}"
+                                 f", want {CLI_CKPT_STEP}")
+        shapes = npz_shapes(os.path.join(root, "before_refine.npz"))
+        hand = ((REFINE_VIEWS, HIRES, HIRES, 3), "float32")
+        if shapes != {"images": hand, "control_images": hand}:
+            raise AssertionError(f"cli stage1: before_refine.npz {shapes}")
+        native_io.flush()
+        for name, shape in (("save/raw_rgb_0.png", (HIRES, HIRES, 3)),
+                            ("save/raw_rgb_31.png", (HIRES, HIRES, 3)),
+                            ("save/it10-0_rgb.png", (HIRES, HIRES, 3))):
+            img = read_png(os.path.join(root, name))
+            if img.shape != shape or img.max() == 0:
+                raise AssertionError(f"cli: {name} {img.shape} max "
+                                     f"{img.max()}")
+        log("cli:stage1", steps=CLI_STEPS, wall_s=round(wall1, 3),
+            median_ms_per_step=round(clock.median_ms(), 3),
+            stage1_wall_s=m["stage1_wall_s"],
+            train_s=round(calls["train_stage1"][0][0], 3),
+            handoff_render_s=round(calls["render_refine_views"][0][0], 3),
+            handoff_write_s=round(handoff_write_s(calls), 3),
+            handoff_npz_bytes=os.path.getsize(os.path.join(
+                root, "before_refine.npz")),
+            val_png_writer="native" if native[0] else "python",
+            densify=fired["densify"], prune=fired["prune"],
+            checkpoint_step=ck_step,
+            precision_policy=m["precision_policy"],
+            compute_dtype=m["compute_dtype"], launches=got)
+
+        t0 = time.perf_counter()
+        with StepClock() as clock, watch_calls(*stage1_calls) as calls:
+            _, got = count_launches(lambda: launch.main(
+                [*args, "--train", "--stage", "stage1", "--resume",
+                 "--max_steps", str(CLI_STEPS)]))
+        wall = time.perf_counter() - t0
+        left = CLI_STEPS - CLI_CKPT_STEP
+        want("stage1", got, left + REFINE_VIEWS // 4, left, True)
+        out["stage1_resume"] = got
+        m = manifest()
+        if m["stage1_steps"] != CLI_STEPS or not os.path.exists(m["ply"]):
+            raise AssertionError(f"cli resume: stage1_steps "
+                                 f"{m['stage1_steps']}, ply {m['ply']}")
+        log("cli:resume", from_step=CLI_CKPT_STEP, steps=left,
+            stage1_steps=m["stage1_steps"], wall_s=round(wall, 3),
+            median_ms_per_step=round(clock.median_ms(0), 3),
+            handoff_write_s=round(handoff_write_s(calls), 3), launches=got)
+    finally:
+        s1.make_densify_fns = make_fns
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        checks = cli_kernel_checks(load_config(config, *CLI_OVERRIDES),
+                                   m["ply"], gen)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        _, got = count_launches(lambda: launch.main(
+            [*args, "--stage", "stage2"]))
+        wall = time.perf_counter() - t0
+        want("stage2", got, 0, 0, True)
+        out["stage2"] = got
+        m = manifest()
+        small = npz_shapes(os.path.join(root, "after_refine.npz"))
+        ref = {"refined_rgbs_small": ((REFINE_VIEWS, CLI_STUB_SIZE,
+                                       CLI_STUB_SIZE, 3), "float32")}
+        if m.get("stage2") != "done" or small != ref:
+            raise AssertionError(f"cli stage2: {m.get('stage2')} {small}")
+        img = read_png(os.path.join(root, "save", "refined_rgb_0.png"))
+        if img.shape != (CLI_STUB_SIZE, CLI_STUB_SIZE, 3):
+            raise AssertionError(f"cli stage2: refined_rgb_0 {img.shape}")
+        log("cli:stage2", wall_s=round(wall, 3), launches=got)
+        refine_err = check_refine_reference(CLI_STUB_SIZE)
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", STAGE3_CHILD, *args, "--train",
+             "--stage", "stage3", "--max_steps", str(CLI_STEPS)],
+            cwd=repo, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli stage3: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        got = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("launches=")][-1][9:])
+        want("stage3", got, CLI_STEPS + CLI_TEST_FRAMES // 4, CLI_STEPS,
+             False)
+        out["stage3"] = got
+        m = manifest()
+        h3 = 2 * CLI_STUB_SIZE  # stage 3 under --stub-guidance
+        img = read_png(os.path.join(root, "save", "test", "0.png"))
+        g = state_from_ply(m["final_ply"], device="cuda")
+        if m.get("stage3") != "done" or img.shape != (h3, h3, 3) \
+                or not os.path.exists(m["video"]) or g.n_active == 0 \
+                or not bool(torch.isfinite(g.xyz[:g.n_active]).all()):
+            raise AssertionError(f"cli stage3: {m.get('stage3')}, test png "
+                                 f"{img.shape}, video {m['video']}, "
+                                 f"n_active {g.n_active}")
+        log("cli:stage3", steps=CLI_STEPS, res=h3, wall_s=round(wall, 3),
+            stage3_wall_s=m["stage3_wall_s"], n_active=g.n_active,
+            video=os.path.basename(m["video"]),
+            video_bytes=os.path.getsize(m["video"]),
+            optional_modules={k: importlib.util.find_spec(k) is not None
+                              for k in ("cv2", "imageio", "yaml", "PIL",
+                                        "tensorboardX")}, launches=got)
+    finally:
+        shutil.rmtree(log_path)
+    return {"launches": out, "kernels": checks, "refine_err": refine_err}
+
+
 def kernel_bound(info, kind_, ops="ops"):
     """(bound ms, "bytes" or "operations") of K1 ("fwd") or K2 ("bwd") from
     check_kernels' counts."""
@@ -1202,7 +1583,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gaussianip_tpu_torch import _nvcc
+    from gaussianip_tpu_torch import _nvcc, set_precision_policy
     from gaussianip_tpu_torch.data.cameras import camera_from_c2w
     from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
                                                    sample_train_batch)
@@ -1217,12 +1598,11 @@ def main() -> int:
 
     dev = "cuda"
     # 1. device
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    policy = set_precision_policy()
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     log("device", name=repr(kind), smi=repr(smi), torch=torch.__version__,
-        cuda=torch.version.cuda, tf32="off (matmul and cudnn)")
+        cuda=torch.version.cuda, precision_policy=policy)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1298,7 +1678,7 @@ def main() -> int:
     # 6. the real guidance: the tiny stack on the card against the CPU, then
     # at full width K3 at every conv shape of the guided step and guided
     # stage-1 steps at the recipe's sizes
-    check_guidance_reference(dev)
+    guidance_errs = check_guidance_reference(dev)
     t0 = time.perf_counter()
     guidance = build_random_sd15_guidance(seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -1348,13 +1728,24 @@ def main() -> int:
     ts3, launches_3, _ = stage3_phase(g2, orbit, targets, gen)
     launches_t = turntable_phase(ts3.gaussians)
 
-    # 8. kernels line: K1/K2 timed at the stub-guided path's shapes and at
+    # 8. the command line: stages 1 -> 2 -> 3 as a user runs them
+    del guidance, models, run, lat, ctx, ctrl, contexts, images, poses, \
+        targets, ts3, g2
+    torch.cuda.empty_cache()
+    cli = cli_phase()
+    launches_cli = cli["launches"]
+
+    # 9. kernels line: K1/K2 timed at the stub-guided path's shapes and at
     # stage 3's, launches on the guided path and per path
-    # (launches_by_path); K3 summed over the guided step's 67 launches and
-    # over a refine denoise call's 67
+    # (launches_by_path; "cli": per stage of the command line); K3 summed
+    # over the guided step's 67 launches and over a refine denoise call's
+    # 67; "cli": each kernel against its plain version at the command
+    # line's shapes
     by_path = {"stage1_stub": launches, "stage1_guided": launches_g,
                "handoff": launches_h, "stage2_refine": launches_r,
                "stage3": launches_3, "turntable": launches_t}
+    cli_launches = lambda k: {stage: v[k]
+                              for stage, v in launches_cli.items()}
     src = "gaussianip_tpu_torch/csrc/composite.cu"
     kernels = []
     for kind_, name, rep, err in (
@@ -1367,7 +1758,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches_g[kind_], "launches_by_path": {
-                k: v[kind_] for k, v in by_path.items()},
+                **{k: v[kind_] for k, v in by_path.items()},
+                "cli": cli_launches(kind_)},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1376,13 +1768,16 @@ def main() -> int:
                 "shape": f"4 x {HIRES}^2, d_max {S3_D_MAX}",
                 "max_abs_err": info3[err], "ms": info3[f"{kind_}_ms"],
                 "plain_ms": info3[f"{kind_}_plain_ms"], "bound_ms": b3_ms,
-                "bound_by": b3_by, "library_ms": None}})
+                "bound_by": b3_by, "library_ms": None},
+            "cli": {tag: {"shape": c["shape"], "max_abs_err": c[err]}
+                    for tag, c in cli["kernels"].items()}})
     kernels.append({
         "name": "K3 conv3x3", "route": "cuda",
         "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",
         "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
         "launches": launches_g["conv3x3"], "launches_by_path": {
-            k: v["conv3x3"] for k, v in by_path.items()},
+            **{k: v["conv3x3"] for k, v in by_path.items()},
+            "cli": cli_launches("conv3x3")},
         "launches_by_variant": {
             "hopper": launches_g["conv3x3_hopper"],
             "general": launches_g["conv3x3_general"]},
@@ -1400,7 +1795,15 @@ def main() -> int:
             "max_abs_err": k3_r["max_abs_err"], "ms": k3_r["ms"],
             "prev_ms": k3_r["prev_ms"], "plain_ms": k3_r["plain_ms"],
             "bound_ms": k3_r["bound_ms"], "bound_by": k3_r["bound_by"],
-            "library_ms": k3_r["library_ms"]}})
+            "library_ms": k3_r["library_ms"]},
+        "cli": {
+            "stage1": {"shape": "the tiny stack at 64^2 (VAE encode and its "
+                                "backward, CFG batch 12), bf16 card vs f32 "
+                                "CPU", "max_rel_err": guidance_errs},
+            "stage2": {"shape": f"the tiny stack's refine, {REFINE_VIEWS} "
+                                f"views at {CLI_STUB_SIZE}^2, 1 step, bf16 "
+                                f"card vs f32 CPU",
+                       "max_abs_err": cli["refine_err"]}}})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,436 @@
+"""The port's command line (port of the repository's launch.py):
+
+  python -m gaussianip_tpu_torch.launch --config configs/exp.yaml --train \
+      --cur_time <id> --stage stage1 --stub-guidance [dotted.key=value ...]
+
+then `--stage stage2` and `--stage stage3` with the same `--cur_time`.
+Each stage reads and writes <system.log_path>/<cur_time>/: run.json (the
+manifest of stage progress), ckpt/stage1_latest.npz, before_refine.npz,
+after_refine.npz, the .ply files, save/*.png, metrics.csv and the test
+video, in the layouts launch.py writes, so that either package continues
+a run directory the other started.
+
+The port runs on the card (`--device cuda`, the default; it raises when
+there is none) at bf16 compute, or on the CPU (`--device cpu`) at float32,
+the JAX package's dtype. TF32 is off on the card
+(gaussianip_tpu_torch.set_precision_policy). The run manifest records the
+device, the compute dtype and the precision policy.
+
+Only the weight-free path runs: `--stub-guidance` (the tiny random
+diffusion stack and the synthetic SMPL-X body). Refused with an error
+naming what is missing: a run without `--stub-guidance` (the checkpoint
+loaders, CLIP encoders and insightface are not ported: ROADMAP.md Queue 1
+item 2), `--export` (the mesh modules: item 4) and `--devices N` with
+N > 1 (data parallel: item 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+import gaussianip_tpu_torch as gt
+
+
+def _check_args(args):
+    """Refuse what the port cannot run yet, and the card when it is
+    missing; nothing falls back quietly."""
+    if getattr(args, "export", False):
+        raise NotImplementedError(
+            "--export needs the mesh modules (ops/mesh_extract.py, "
+            "ops/mesh_export.py), not ported yet: ROADMAP.md Queue 1 item 4")
+    devices = str(getattr(args, "devices", "auto"))
+    if devices != "auto" and int(devices) > 1:
+        raise NotImplementedError(
+            f"--devices {devices}: the port runs on one card; data parallel "
+            "is ROADMAP.md Queue 1 item 5")
+    if not args.stub_guidance:
+        raise NotImplementedError(
+            "the real-weights path needs the checkpoint loaders (the SD1.5 "
+            "UNet, ControlNet, VAE and IP-Adapter state dicts, the CLIP "
+            "text and image encoders, insightface, LPIPS), not ported yet: "
+            "ROADMAP.md Queue 1 item 2. Pass --stub-guidance for the "
+            "weight-free run")
+    device = getattr(args, "device", "cuda")
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device is visible "
+                               "(pass --device cpu to run on the CPU)")
+
+
+def compute_dtype(device: str):
+    """bf16 on the card (K3 takes bf16 only), float32 on the CPU."""
+    import torch
+
+    return torch.bfloat16 if device == "cuda" else torch.float32
+
+
+def build_skeleton(system_cfg, stub: bool, device="cuda"):
+    from .human.skeleton import Skeleton
+
+    smplx_path = system_cfg.get("smplx_path", "")
+    if not stub and smplx_path and (
+        os.path.exists(smplx_path)
+        or os.path.exists(os.path.join(smplx_path, "SMPLX_NEUTRAL.npz"))
+    ):
+        sk = Skeleton(smplx_path, gender=system_cfg.get("gender", "neutral"),
+                      apose=system_cfg.get("apose", True), device=device)
+    else:
+        from .human.smplx import make_test_model
+
+        if not stub:
+            gt.warn(f"SMPL-X model not found at '{smplx_path}' — using the "
+                    f"synthetic test body (geometry will be a blob)")
+        sk = Skeleton(_test_model=make_test_model(
+            np.random.default_rng(0), n_verts=2000, n_faces=3000,
+            device=device), apose=system_cfg.get("apose", True))
+    sk.forward_smplx()
+    sk.scale(-10)
+    return sk
+
+
+def camera_config(cfg, height=None, width=None):
+    """The camera sampler's config from the `data:` section (the
+    registry's random-camera-datamodule)."""
+    from . import components  # noqa: F401  (registers the type names)
+
+    return gt.find(cfg["data_type"])(cfg["data"], height, width).cfg
+
+
+def _stub_stack(cfg, prompt: str, negative_prompt: str, device: str):
+    from .system import pipeline as pl
+
+    return pl.build_stub_guidance_stack(
+        prompt, negative_prompt,
+        image_size=int(cfg["system"].get("stub_image_size", 64)),
+        device=device, dtype=compute_dtype(device))
+
+
+def run_stage1(cfg, dirs, args):
+    import torch
+
+    from .data.cameras import camera_from_c2w
+    from .data.sampler import eval_orbit_batch, refine_orbit_batch
+    from .model.adam import AdamHyper
+    from .model.gaussians import create_from_pcd
+    from .model.ply import state_to_ply
+    from .ops.knn import mean_dist2_3nn
+    from .render.render import RenderConfig, render
+    from .system.refine import render_refine_views
+    from .system.stage1 import Stage1Config, init_train_state, train_stage1
+    from .utils import native_io
+    from .utils.checkpoint import load_train_state_npz, save_train_state_npz
+    from .utils.logging import MetricsLogger
+    from .utils.saving import save_image
+
+    _check_args(args)
+    dev = getattr(args, "device", "cuda")
+    sys_cfg = cfg["system"]
+    sk = build_skeleton(sys_cfg, args.stub_guidance, dev)
+
+    n_pts = int(sys_cfg.get("pts_num", 100000))
+    pts = sk.sample_smplx_points(n_pts, seed=cfg.get("seed", 42))
+    colors = np.full((n_pts, 3), 0.5, np.float32)
+    capacity = int(sys_cfg.get("capacity", max(1 << 17, 2 * n_pts)))
+    d2 = mean_dist2_3nn(torch.as_tensor(pts, device=dev))
+    gs = create_from_pcd(pts, colors, capacity, d2, device=dev)
+    ts = init_train_state(gs)
+
+    s1 = Stage1Config(
+        render_height=int(sys_cfg.get("height", 512)),
+        render_width=int(sys_cfg.get("width", 512)),
+        bg_white=bool(sys_cfg.get("bg_white", False)),
+        densify_prune_start_step=int(sys_cfg["densify_prune_start_step"]),
+        densify_prune_end_step=int(sys_cfg["densify_prune_end_step"]),
+        densify_prune_interval=int(sys_cfg["densify_prune_interval"]),
+        densify_prune_min_opacity=float(sys_cfg["densify_prune_min_opacity"]),
+        densify_prune_world_size_threshold=float(
+            sys_cfg["densify_prune_world_size_threshold"]),
+        prune_only_start_step=int(sys_cfg["prune_only_start_step"]),
+        prune_only_end_step=int(sys_cfg["prune_only_end_step"]),
+        prune_only_interval=int(sys_cfg["prune_only_interval"]),
+        prune_opacity_threshold=float(sys_cfg["prune_opacity_threshold"]),
+        prune_world_size_threshold=float(sys_cfg["prune_world_size_threshold"]),
+        max_grad=float(sys_cfg["max_grad"]),
+        max_steps=int(cfg["trainer"]["max_steps"]),
+    )
+    cam_cfg = camera_config(cfg, s1.render_height, s1.render_width)
+    guidance = _stub_stack(cfg, sys_cfg["prompt_processor"]["prompt"],
+                           sys_cfg["prompt_processor"]["negative_prompt"], dev)
+
+    # 512^2 training renders: footprints fit a 4x4-tile budget (radii halve
+    # vs 1024^2); eval/refine/stage3 use the default d_max=25
+    rcfg = RenderConfig(d_max=16)
+    n_steps = args.max_steps or s1.max_steps
+    t0 = time.time()
+    val_every = int(cfg["trainer"].get("val_check_interval", 100))
+    eval_batch = eval_orbit_batch(cam_cfg, "val", dev)
+
+    @torch.no_grad()
+    def save_val(i, ts_state):
+        eh, ew = cam_cfg.eval_height, cam_cfg.eval_width
+        cams_v = camera_from_c2w(eval_batch.c2w[0:1], eval_batch.fovy[0:1],
+                                 eh, ew)
+        img = render(ts_state.gaussians, cams_v, torch.zeros(3, device=dev),
+                     rcfg).rgb[0].cpu().numpy()
+        p = dirs.path("save", f"it{i}-0_rgb.png")
+        # the async native writer keeps the train loop moving
+        if not native_io.write_png_async(p, img):
+            save_image(p, img)
+
+    mlog = MetricsLogger(dirs.root)
+
+    def log(i, m):
+        gt.info(f"step {i}: loss={m['loss']:.4f} sds={m['loss_sds']:.4f} "
+                f"n={int(m['n_active'])} ({time.time() - t0:.0f}s)")
+        mlog.log(i, m)
+
+    # checkpoint / resume: a periodic npz of the whole TrainState in the
+    # JAX package's layout; --resume continues from the latest one
+    ckpt_path = dirs.path("ckpt", "stage1_latest.npz")
+    resume_from = getattr(args, "resume_from", None)
+    if getattr(args, "resume", False) or resume_from:
+        src = resume_from or ckpt_path
+        if os.path.exists(src):
+            ts = load_train_state_npz(src, ts)
+            gt.info(f"resumed stage 1 from {src} at step {ts.step}")
+        else:
+            gt.info(f"--resume: no checkpoint at {src}; starting fresh")
+        n_steps = max(n_steps - ts.step, 0)
+
+    def save_ckpt(i, ts_state):
+        save_train_state_npz(ckpt_path, ts_state)
+
+    generator = torch.Generator(device=dev).manual_seed(int(cfg.get("seed",
+                                                                    42)))
+    ts = train_stage1(
+        ts, s1, cam_cfg, rcfg, AdamHyper(), guidance, sk.points3d,
+        generator, n_steps=n_steps, log_fn=log,
+        log_every=int(cfg["trainer"].get("log_every_n_steps", 100)),
+        val_every=val_every, val_fn=save_val,
+        ckpt_every=int(cfg["trainer"].get("ckpt_every_n_steps", 500)),
+        ckpt_fn=save_ckpt)
+    mlog.close()
+
+    # the 32 refine views and their pose maps (the before_refine handoff)
+    n_views = int(sys_cfg.get("refine_n_views", 32))
+    H = int(sys_cfg.get("ori_height", 1024))
+    orbit = refine_orbit_batch(
+        n_views, float(sys_cfg["refine_elevation"]),
+        float(sys_cfg["refine_camera_distance"]),
+        float(sys_cfg["refine_fovy_deg"]), H,
+        int(sys_cfg.get("ori_width", 1024)), dev)
+    images, poses = render_refine_views(ts.gaussians, orbit, sk.points3d,
+                                        H, H, rcfg)
+    rgb_np, poses_np = images.cpu().numpy(), poses.cpu().numpy()
+    np.savez(dirs.path("before_refine.npz"), images=rgb_np,
+             control_images=poses_np)
+    for i in range(n_views):
+        save_image(dirs.path("save", f"raw_rgb_{i}.png"), rgb_np[i])
+
+    total_steps = ts.step  # global step (resume-aware)
+    ply_path = dirs.path(f"it{total_steps}.ply")
+    state_to_ply(ts.gaussians, ply_path)
+    dirs.manifest(stage1="done", stage1_steps=total_steps, ply=ply_path,
+                  stage1_wall_s=round(time.time() - t0, 1))
+    gt.info(f"stage 1 done in {time.time() - t0:.0f}s -> {ply_path}")
+
+
+def run_stage2(cfg, dirs, args):
+    """In-process VCR refinement of the 32 handoff views."""
+    import torch
+
+    from .guidance.prompts import fake_text_encoder
+    from .ops.resize import linear_resize
+    from .system.refine import (RefineModels, crop_and_downsample,
+                                refine_contexts, refine_views)
+    from .utils.saving import save_image
+
+    _check_args(args)
+    dev = getattr(args, "device", "cuda")
+    sys_cfg = cfg["system"]
+    with np.load(dirs.path("before_refine.npz")) as data:
+        images = torch.as_tensor(data["images"], device=dev)
+        control = torch.as_tensor(data["control_images"], device=dev)
+
+    sz = int(sys_cfg.get("stub_image_size", 64))
+    g = _stub_stack(cfg, "person", "bad", dev)
+    models = RefineModels(*g.models)
+    enc = fake_text_encoder(77, 32)
+    resize = lambda x: linear_resize(x.permute(0, 3, 1, 2), sz,
+                                     sz).permute(0, 2, 3, 1)
+    images, control = resize(images), resize(control)
+    ip_tok = np.zeros((4, 32), np.float32)
+    contexts = refine_contexts(enc, sys_cfg["prompt_processor"]["prompt"],
+                               ip_tok, ip_tok, dev)
+
+    # the shared forward-diffusion draw of every view's latents
+    s = sz // models.vae.cfg.downscale
+    noise = torch.randn((4, s, s), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(2024))
+    refined = refine_views(models, images, control, contexts, noise,
+                           dense_batch=4)
+    refined_np = refined.cpu().numpy()  # one device pull, not 32
+    for i in range(refined_np.shape[0]):
+        save_image(dirs.path("save", f"refined_rgb_{i}.png"), refined_np[i])
+    small = crop_and_downsample(refined) if refined.shape[1] >= 1024 \
+        else refined
+    np.savez(dirs.path("after_refine.npz"),
+             refined_rgbs_small=small.cpu().numpy())
+    dirs.manifest(stage2="done")
+    gt.info(f"stage 2 done -> {dirs.path('after_refine.npz')}")
+
+
+def run_stage3(cfg, dirs, args):
+    import torch
+
+    from dataclasses import replace
+
+    from .data.sampler import eval_orbit_batch, refine_orbit_batch
+    from .model.adam import AdamHyper
+    from .model.ply import state_from_ply, state_to_ply
+    from .render.render import RenderConfig
+    from .system.stage1 import init_train_state
+    from .system.stage3 import (Stage3Config, draw_view_ids,
+                                render_turntable, train_stage3)
+    from .utils.logging import MetricsLogger
+    from .utils.saving import save_image, save_video
+
+    _check_args(args)
+    dev = getattr(args, "device", "cuda")
+    sys_cfg = cfg["system"]
+    gs = state_from_ply(dirs.manifest().get("ply"), device=dev)
+    ts = init_train_state(gs)
+    with np.load(dirs.path("after_refine.npz")) as data:
+        refined = torch.as_tensor(data["refined_rgbs_small"], device=dev)
+
+    H = int(sys_cfg.get("ori_height", 1024))
+    if args.stub_guidance:
+        H = max(refined.shape[1] * 2, 32)
+    n_views = int(sys_cfg.get("refine_n_views", 32))
+    orbit = refine_orbit_batch(
+        n_views, float(sys_cfg["refine_elevation"]),
+        float(sys_cfg["refine_camera_distance"]),
+        float(sys_cfg["refine_fovy_deg"]), H, H, dev)
+    cy, cx = (60, 890), (220, 800)
+    if H != 1024:  # scale the crop window to the render size
+        cy = (60 * H // 1024, max(890 * H // 1024, 60 * H // 1024 + 8))
+        cx = (220 * H // 1024, max(800 * H // 1024, 220 * H // 1024 + 8))
+    s3 = Stage3Config(
+        height=H, width=H, crop_y=cy, crop_x=cx,
+        refine_start_step=int(sys_cfg.get("refine_start_step", 2400)),
+        max_steps=args.max_steps or int(cfg["trainer"]["max_steps"]),
+        train_bs=int(sys_cfg.get("refine_train_bs", 4)),
+        lambda_l1=float(sys_cfg.get("lambda_l1", 10)),
+        lambda_lpips=float(sys_cfg.get("lambda_lpips", 15)),
+        max_grad=float(sys_cfg["max_grad"]),
+    )
+    # 10 * L1 + 15 * LPIPS needs the LPIPS loader; the stub run is L1 alone
+    lpips_fn = None
+    gen = torch.Generator(device=dev).manual_seed(7)
+    view_ids = draw_view_ids(gen, n_views, s3.train_bs, s3.max_steps, dev)
+    split_noise = torch.randn((2, gs.capacity, 3), generator=gen, device=dev)
+    t0 = time.time()
+    mlog = MetricsLogger(dirs.root)
+
+    def s3log(i, m):
+        gt.info(f"s3 step {i}: loss={m['loss']:.4f}")
+        mlog.log(i + s3.refine_start_step, m)
+
+    ts = train_stage3(ts, s3, RenderConfig(), AdamHyper(), orbit, refined,
+                      view_ids, split_noise, lpips_fn=lpips_fn, log_fn=s3log)
+    mlog.close()
+
+    # the test orbit's video and the final ply
+    cam_cfg = replace(camera_config(cfg), eval_height=min(H, 1024),
+                      eval_width=min(H, 1024))
+    test = eval_orbit_batch(cam_cfg, "test", dev)
+    He = cam_cfg.eval_height
+    frames = render_turntable(ts.gaussians, test, He, He,
+                              RenderConfig()).cpu().numpy()
+    for i in range(0, frames.shape[0], 16):
+        save_image(dirs.path("save", "test", f"{i}.png"), frames[i])
+    video = save_video(dirs.path("save", "test.mp4"), frames, fps=30)
+    final_ply = dirs.path("save", "last.ply")
+    state_to_ply(ts.gaussians, final_ply)
+    dirs.manifest(stage3="done", final_ply=final_ply,
+                  stage3_wall_s=round(time.time() - t0, 1), video=video)
+    gt.info(f"stage 3 done in {time.time() - t0:.0f}s -> {final_ply}")
+
+
+def record_runtime(dirs, device: str):
+    """Set the precision policy and record it, the device and the compute
+    dtype in the run manifest."""
+    policy = gt.set_precision_policy()
+    dirs.manifest(device=device,
+                  compute_dtype=str(compute_dtype(device)).split(".")[-1],
+                  precision_policy=policy)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(prog="python -m gaussianip_tpu_torch.launch")
+    parser.add_argument("--config", default="configs/exp.yaml")
+    parser.add_argument("--train", action="store_true")
+    parser.add_argument("--validate", action="store_true")
+    parser.add_argument("--test", action="store_true")
+    parser.add_argument("--export", action="store_true",
+                        help="not ported: raises")
+    parser.add_argument("--cur_time", required=True)
+    parser.add_argument("--stage", default=None,
+                        help="override system.stage (stage1|stage2|stage3)")
+    parser.add_argument("--stub-guidance", action="store_true",
+                        help="weight-free run (tiny random diffusion stack, "
+                             "synthetic SMPL-X body); required for now")
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume stage 1 from the run dir's latest "
+                             "TrainState checkpoint")
+    parser.add_argument("--resume_from", default=None,
+                        help="explicit TrainState checkpoint path (implies "
+                             "--resume)")
+    parser.add_argument("--devices", default="auto",
+                        help="auto or 1: one card (more raises)")
+    parser.add_argument("--recipe_batch", action="store_true",
+                        help="accepted; with one card the configured camera "
+                             "batch is used as it is")
+    parser.add_argument("--gpu", default="0")  # accepted for CLI parity
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where the port runs (cuda: the card, and an "
+                             "error without one)")
+    return parser.parse_known_args(argv)
+
+
+def main(argv=None):
+    from .utils.config import load_config
+    from .utils.saving import RunDirs
+
+    args, extras = parse_args(argv)
+    _check_args(args)
+    cfg = load_config(args.config, *extras)
+    stage = args.stage or cfg["system"].get("stage", "stage1")
+    dirs = RunDirs(cfg["system"].get("log_path", "logs"), args.cur_time)
+    dirs.manifest(config=args.config, stage_requested=stage,
+                  prompt=cfg["system"]["prompt_processor"]["prompt"])
+    dirs.snapshot_code()
+    record_runtime(dirs, args.device)
+
+    np.random.seed(int(cfg.get("seed", 42)))
+
+    if stage == "stage1":
+        run_stage1(cfg, dirs, args)
+    elif stage == "stage2":
+        run_stage2(cfg, dirs, args)
+    elif stage == "stage3":
+        run_stage3(cfg, dirs, args)
+    else:
+        raise ValueError(f"unknown stage {stage}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

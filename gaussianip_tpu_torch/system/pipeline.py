@@ -144,7 +144,14 @@ def build_stub_guidance_stack(prompt: str, negative_prompt: str,
                               dtype=torch.float32) -> AHDSGuidance:
     """Tiny random models (N(0, 0.05) kernels, as the JAX package's
     fast_init; float32 parameters computed at `dtype`) and the fake text
-    encoder: the weight-free smoke stack."""
+    encoder: the weight-free smoke stack. On a CUDA device `dtype` must be
+    bfloat16: every stride-1 3x3 conv there is K3, which takes bf16 only;
+    other dtypes are refused here rather than at the first guided step."""
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"build_stub_guidance_stack: dtype {dtype} on a CUDA device; the "
+            "3x3 convs run on K3 (ops/conv3x3_cuda.py), which takes "
+            "torch.bfloat16 only")
     gen = torch.Generator(device=device).manual_seed(seed)
     ucfg = tiny_unet_config(ip_tokens=4, dtype=dtype)
     unet = _build(lambda: UNet2DConditionModel(ucfg), gen, device, 0.05)

@@ -228,14 +228,25 @@ def train_stage1(ts: TrainState, cfg: Stage1Config,
                  generator: torch.Generator, n_steps: int | None = None,
                  log_every: int = 100,
                  log_fn: Callable[[int, dict], None] | None = None,
-                 hand_centers=None):
+                 hand_centers=None, val_every: int = 0,
+                 val_fn: Callable[[int, TrainState], None] | None = None,
+                 ckpt_every: int = 0,
+                 ckpt_fn: Callable[[int, TrainState], None] | None = None):
     """Host schedule loop for stage 1. `generator` lives on the state's
-    device; metrics reach `log_fn` as host floats."""
+    device; metrics reach `log_fn` as host floats. After step index i,
+    `val_fn(i, ts)` runs when i % val_every == 0 and i > 0, and
+    `ckpt_fn(i, ts)` when i > the start step and i % ckpt_every == 0.
+
+    A resumed run (ts.step > 0) reseeds `generator` from its initial seed
+    and the start step (resume_seed), so that it does not replay the draws
+    of the run it continues."""
     step_fn = make_train_step(cfg, cam_cfg, render_cfg, adam_hyper, guidance,
                               skel_points3d, hand_centers)
     densify, prune = make_densify_fns(cfg)
     n_steps = cfg.max_steps if n_steps is None else n_steps
     start = ts.step
+    if start > 0:
+        generator.manual_seed(resume_seed(generator.initial_seed(), start))
     for i in range(start, start + n_steps):
         ts, metrics = step_fn(ts, generator)
         if densify_due(cfg, i):
@@ -244,4 +255,15 @@ def train_stage1(ts: TrainState, cfg: Stage1Config,
             ts = prune(ts)
         if log_fn is not None and i % log_every == 0:
             log_fn(i, {k: float(v) for k, v in metrics.items()})
+        if val_fn is not None and val_every and i % val_every == 0 and i > 0:
+            val_fn(i, ts)
+        if ckpt_fn is not None and ckpt_every and i > start \
+                and i % ckpt_every == 0:
+            ckpt_fn(i, ts)
     return ts
+
+
+def resume_seed(seed: int, start: int) -> int:
+    """The generator seed of a run resumed at step `start` > 0 from a run
+    seeded `seed`: a 63-bit mix of both, distinct for each start step."""
+    return (seed * 0x9E3779B97F4A7C15 + start) % (1 << 63)
