@@ -31,10 +31,17 @@ sizes: stage 1 with validation, a checkpoint, a densify and a prune, its
 --resume, stage 2, and stage 3 in a child process that runs the launch
 module as `python -m` does, each stage's run files and kernel launches
 checked, and K1/K2 (on the stub-trained state) and the tiny stack's refine
-held against their plain versions at the command line's shapes. Prints
-one line per phase, a `kernels` JSON
-line, the card's name and power limit, and as its last line {"ok": true,
-"device": {...}}. Any failed phase exits non-zero; there is no CPU path.
+held against their plain versions at the command line's shapes. Then the
+real-weights path (cli:real): a released-layout checkpoint set written at
+the published widths from seeded random modules into a temporary
+directory (system/standin.py), every loaded tensor held against its
+source and the loaded stack's forward against the source stack's, the
+command line without --stub-guidance on that set (stage 1, stage 2 in
+full, stage 3 and the turntable, with each stage's launches, LPIPS loaded
+and the face-identity branch recorded) and eval_avatar. Prints one line
+per phase, a `kernels` JSON line, the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}. Any failed phase exits
+non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -78,15 +85,15 @@ GUIDANCE_REF_TOL = 6e-2
 # f32 operations (an FMA counts 2) per (instance, pixel) pair up to the
 # pixel's last contributor, as csrc/composite.cu computes the function with
 # K1 at 2 and K2 at 4 pixels per thread. K1: the power from the column
-# terms 4 (2 FMA), the column terms u, v 6 per thread and instance (3 FMA)
-# over 2 pixels 3, exp 1, min 1, 1 - alpha 1, T update 1, weight 1, 5
-# accumulations 10 -> 22. K2: power 4, column terms 6 / 4 = 1.5, exp 1,
-# min 1, 1 - alpha 1, reciprocal 1, T 1, weight 1, feat . gout 9, dpower 4,
-# r update 2, the sums of dpower, dpower y, dpower y^2 5, the 4 colour and
-# depth terms 8, and per thread and instance the six coefficient terms
-# from those sums 3 and the transposed reduction's adds 31 / 3 over 4
-# pixels 3.3 -> 43
-OPS_PER_PAIR = {"fwd": 22, "bwd": 43}
+# terms 4 (2 multiplies, 2 adds, unfused), times log2(e) 1, the column
+# terms u, v 6 per thread and instance over 2 pixels 3, exp 1, min 1,
+# 1 - alpha 1, T update 1, weight 1, 5 accumulations 10 -> 23. K2: power
+# 4, times log2(e) 1, column terms 6 / 4 = 1.5, exp 1, min 1, 1 - alpha 1,
+# reciprocal 1, T 1, weight 1, feat . gout 9, dpower 4, r update 2, the
+# sums of dpower, dpower y, dpower y^2 5, the 4 colour and depth terms 8,
+# and per thread and instance the six coefficient terms from those sums 3
+# and the transposed reduction's adds 31 / 3 over 4 pixels 3.3 -> 44
+OPS_PER_PAIR = {"fwd": 23, "bwd": 44}
 # the first, one-pixel-per-thread kernels' counts (power 11 from the six
 # coefficients, K2's 11 terms summed per pixel, a divide), printed beside
 # as first_bound_ms for comparison with earlier bounds
@@ -148,6 +155,35 @@ CLI_OVERRIDES = (
     "system.prune_only_interval=15")
 CLI_STUB_SIZE = 64  # launch.py's default system.stub_image_size
 CLI_TEST_FRAMES = 288
+# the command line without --stub-guidance (phase cli:real) on a
+# released-layout checkpoint set written from seeded random modules at the
+# published widths: the SD1.5 UNet with a rank-128 IP-Adapter LoRA on every
+# attention (float16; its up projections scaled by LORA_UP_SCALE, so that
+# the folded weights keep the random stack's statistics), the ControlNet
+# (float16), the VAE (float32), CLIP-L (12 x 768, 49,408 tokens) and the
+# ViT-H/14 (32 x 1280, float16), VGG16 + the LPIPS heads. Stage 1 for
+# CLI_REAL_STEPS steps at the recipe's sizes (one validation render and a
+# checkpoint after step index 5), stage 2 in full, stage 3 for
+# CLI_REAL_STEPS steps at 1024^2 and the turntable, then eval_avatar
+CLI_REAL_STEPS = 10
+CLI_REAL_OVERRIDES = ("trainer.log_every_n_steps=1",
+                      "trainer.val_check_interval=5",
+                      "trainer.ckpt_every_n_steps=5")
+LORA_RANK = 128
+LORA_UP_SCALE = 0.1
+CLIP_L = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072,
+              num_hidden_layers=12, num_attention_heads=12,
+              max_position_embeddings=77, hidden_act="quick_gelu")
+VIT_H = dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+             num_attention_heads=16, image_size=224, patch_size=14,
+             hidden_act="gelu")
+# the loaded stack against the source stack with the same (file-rounded,
+# folded) weights, one ControlNet + UNet call on a CFG batch of 12 at 64^2
+# latents: worst |diff| over the largest |value|
+REAL_FWD_TOL = 1e-2
+# scripts/eval_avatar.py's EVAL.json keys with both LPIPS checkpoints
+EVAL_KEYS = {"n_views", "render_size", "psnr", "ssim", "l1", "ply",
+             "lpips_vgg", "id_similarity", "id_similarity_backend"}
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
 # package's tiled compositor deviates from its dense oracle by 1.4e-3 on
@@ -1568,6 +1604,438 @@ def cli_phase():
     return {"launches": out, "kernels": checks, "refine_err": refine_err}
 
 
+def real_sources(gen):
+    """The seeded random modules of the checkpoint set, on the card:
+    build_random_sd15_guidance(seed=SEED)'s ControlNet and VAE and its
+    UNet's weights under a random rank-LORA_RANK LoRA, a ProjPlusModel,
+    CLIP-L, the ViT-H/14 and build_random_lpips(seed=SEED)."""
+    import torch
+    from dataclasses import replace
+
+    from gaussianip_tpu_torch.diffusion.clip import (CLIPTextConfig,
+                                                     CLIPTextModel,
+                                                     CLIPVisionConfig,
+                                                     CLIPVisionModel)
+    from gaussianip_tpu_torch.diffusion.ip_adapter import ProjPlusModel
+    from gaussianip_tpu_torch.diffusion.unet import UNet2DConditionModel
+    from gaussianip_tpu_torch.system import pipeline as pl
+
+    unet0, cn, vae = pl.build_random_sd15_guidance(seed=SEED,
+                                                   device="cuda").models
+    unet = pl._build(lambda: UNet2DConditionModel(replace(
+        unet0.cfg, lora_rank=LORA_RANK)), gen, "cuda")
+    missing = unet.load_state_dict(unet0.state_dict(), strict=False)
+    if missing.unexpected_keys or not all(
+            "lora_" in k for k in missing.missing_keys):
+        raise AssertionError(f"real: LoRA UNet keys {missing}")
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if "lora_up" in name:
+                p.mul_(LORA_UP_SCALE)
+    del unet0
+    return {"unet": unet, "controlnet": cn, "vae": vae,
+            "proj": pl._build(lambda: ProjPlusModel(), gen, "cuda"),
+            "text_encoder": pl._build(lambda: CLIPTextModel(
+                CLIPTextConfig(**CLIP_L)), gen, "cuda"),
+            "vision_encoder": pl._build(lambda: CLIPVisionModel(
+                CLIPVisionConfig(**VIT_H)), gen, "cuda"),
+            "lpips": pl.build_random_lpips(SEED, "cuda")}
+
+
+def rounded(module, dtype):
+    """module's state dict on the CPU after a round trip through `dtype`
+    (a file's rounding)."""
+    return {k: v.detach().cpu().to(dtype).float() if v.is_floating_point()
+            else v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def assert_state_equal(tag, got, want: dict):
+    sd = {k: v.detach().cpu() for k, v in got.state_dict().items()}
+    if sd.keys() != want.keys():
+        raise AssertionError(f"real:{tag}: keys differ by "
+                             f"{sorted(sd.keys() ^ want.keys())[:5]}")
+    bad = [k for k in sd if not torch_equal(sd[k], want[k])]
+    if bad:
+        raise AssertionError(f"real:{tag}: {len(bad)} tensors differ from "
+                             f"the source, first {bad[:3]}")
+    return len(sd)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a, b))
+
+
+def folded_unet_state(unet, file_dt, ip_dt) -> dict:
+    """What the loader should make of the source LoRA UNet, built from its
+    own state dict in torch: every tensor rounded to its file's dtype (the
+    IP projections to the IP-Adapter file's), and each projection with a
+    LoRA folded as W + up @ down in float64 from the rounded factors, then
+    rounded to the UNet file's dtype. -> {name: float32 CPU tensor}, the
+    LoRA keys dropped."""
+    import torch
+
+    sd = {k: v.detach() for k, v in unet.state_dict().items()}
+    out = {}
+    for k, v in sd.items():
+        if ".lora_" in k:
+            continue
+        if not v.is_floating_point():
+            out[k] = v.cpu()
+            continue
+        if "_ip." in k:
+            out[k] = v.to(ip_dt).float().cpu()
+            continue
+        down = sd.get(k.replace(".main.", ".lora_down."))
+        if k.endswith(".main.weight") and down is not None:
+            up = sd[k.replace(".main.", ".lora_up.")]
+            v = (v.to(file_dt).double() + up.to(ip_dt).double()
+                 @ down.to(ip_dt).double())
+        out[k] = v.to(file_dt).float().cpu()
+    return out
+
+
+def assert_fold_close(got, want: dict, file_dt):
+    """The loaded UNet against folded_unet_state: every tensor equal, but
+    a folded one may differ by one step of `file_dt` at its value (the
+    loader folds in float32, so a sum next to a midpoint of `file_dt` may
+    round the other way). -> (tensors checked, {"tensors_not_equal": n,
+    "elements_one_step_off": n})."""
+    import torch
+
+    sd = {k: v.detach() for k, v in got.state_dict().items()}
+    if sd.keys() != want.keys():
+        raise AssertionError(f"real:unet: keys differ by "
+                             f"{sorted(sd.keys() ^ want.keys())[:5]}")
+    fi = torch.finfo(file_dt)
+    unequal = off = 0
+    bad = []
+    for k, w in want.items():
+        g = sd[k].cpu()
+        if torch_equal(g, w):
+            continue
+        step = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp(min=fi.tiny)))) * fi.eps
+        unequal += 1
+        if g.dtype != w.dtype or g.shape != w.shape or not bool(
+                ((g - w).abs() <= step).all()):
+            bad.append(k)
+        off += int((g != w).sum())
+    if bad:
+        raise AssertionError(f"real:unet: {len(bad)} tensors differ from "
+                             f"the source's fold, first {bad[:3]}")
+    return len(sd), {"tensors_not_equal": unequal,
+                     "elements_one_step_off": off}
+
+
+def check_real_loaders(src, out, cfg):
+    """The loaders on the card against their sources: each loaded tensor
+    equals its source after the file's rounding (the UNet against
+    folded_unet_state, a fold of the source's state dict that shares no
+    code with the loader's), with each file's read seconds and bytes and
+    each loader's seconds; then the loaded ControlNet + UNet against the
+    source stack with the same folded weights on one CFG batch.
+    -> {loader: {...}}."""
+    import torch
+
+    from gaussianip_tpu_torch.diffusion import weights as W
+    from gaussianip_tpu_torch.system import pipeline as pl
+    from gaussianip_tpu_torch.system.standin import FILE_DTYPES
+
+    g_cfg = cfg["system"]["guidance"]
+    reads = []
+    read = W.load_torch_state_dict
+
+    def timed_read(path, *a, **kw):
+        t0 = time.perf_counter()
+        sd = read(path, *a, **kw)
+        reads.append((os.path.basename(os.path.dirname(path)) + "/"
+                      + os.path.basename(path), time.perf_counter() - t0,
+                      os.path.getsize(path)))
+        return sd
+
+    def timed(name, fn):
+        del reads[:]
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        info[name] = {"seconds": round(total, 3), "files": {
+            f: {"read_s": round(s, 3), "bytes": b} for f, s, b in reads},
+            "convert_and_move_s": round(total - sum(s for _, s, _ in reads),
+                                        3)}
+        return result
+
+    info = {}
+    W.load_torch_state_dict = timed_read
+    try:
+        models = timed("load_real_models",
+                       lambda: pl.load_real_models(g_cfg, device="cuda"))
+        proj = timed("load_ip_adapter_proj", lambda: pl.load_ip_adapter_proj(
+            g_cfg["ip_ckpt_faceid_v2_path"], device="cuda"))
+        encode = timed("load_text_encoder", lambda: pl.load_text_encoder(
+            g_cfg["pretrained_realistic_model_name_or_path"], "cuda"))
+        from gaussianip_tpu_torch.diffusion.clip import (load_clip_text,
+                                                         load_clip_vision)
+        text = timed("load_clip_text", lambda: load_clip_text(os.path.join(
+            g_cfg["pretrained_realistic_model_name_or_path"],
+            "text_encoder"), "cuda"))
+        vision = timed("load_image_encoder", lambda: load_clip_vision(
+            g_cfg["image_encoder_faceid_path"], "cuda"))
+        lpips = timed("load_lpips", lambda: pl.load_lpips(cfg["system"],
+                                                          "cuda"))
+    finally:
+        W.load_torch_state_dict = read
+    dt = FILE_DTYPES
+
+    # the UNet against a fold of the source's own state dict, made here
+    # and not by the loader's code (see folded_unet_state)
+    want_unet_sd = folded_unet_state(src["unet"], dt["unet"],
+                                     dt["ip_adapter"])
+    n_unet, unet_ulps = assert_fold_close(models.unet, want_unet_sd,
+                                          dt["unet"])
+    counts = {"unet": n_unet}
+    info["unet_fold"] = unet_ulps
+    for tag, got, mod, file_dt in (
+            ("controlnet", models.controlnet, src["controlnet"],
+             dt["controlnet"]),
+            ("vae", models.vae, src["vae"], dt["vae"]),
+            ("proj", proj, src["proj"], dt["ip_adapter"]),
+            ("text_encoder", text, src["text_encoder"], dt["text_encoder"]),
+            ("image_encoder", vision, src["vision_encoder"],
+             dt["image_encoder"]),
+            ("lpips", lpips, src["lpips"], torch.float32)):
+        counts[tag] = assert_state_equal(tag, got, rounded(mod, file_dt))
+    hidden = encode(["a person"])
+    if hidden.shape != (1, 77, 768) or not np.isfinite(hidden).all():
+        raise AssertionError(f"real: text encoder output {hidden.shape}")
+
+    # the loaded stack against the source stack with the same weights: the
+    # UNet's are the loaded folded ones, held against the independent fold
+    # above (the one-step differences grow past REAL_FWD_TOL in bf16)
+    del want_unet_sd
+    with torch.device("meta"):
+        want_unet = models.unet.__class__(models.unet.cfg)
+        want_cn = models.controlnet.__class__(models.controlnet.cfg)
+    want_unet.load_state_dict({k: v.detach().clone() for k, v in
+                               models.unet.state_dict().items()},
+                              assign=True)
+    want_cn.load_state_dict(rounded(src["controlnet"], dt["controlnet"]),
+                            assign=True)
+    want_cn = want_cn.to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b = 3 * BATCH
+    lat = torch.randn((b, 4, RES // 8, RES // 8), device="cuda",
+                      generator=g)
+    ts = torch.randint(20, 980, (b,), device="cuda", generator=g)
+    ctx = torch.randn((b, 81, 768), device="cuda", generator=g) * 0.5
+    ctrl = torch.rand((b, 3, RES, RES), device="cuda", generator=g)
+
+    @torch.no_grad()
+    def call(unet, cn):
+        down, mid = cn(lat, ts, ctx, ctrl, conditioning_scale=1.0)
+        return unet(lat, ts, ctx, down_block_residuals=down,
+                    mid_block_residual=mid, ip_scale=0.5).float()
+
+    got = call(models.unet, models.controlnet)
+    ref = call(want_unet, want_cn)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= REAL_FWD_TOL * scale):
+        raise AssertionError(f"real: loaded stack vs source, max |diff| "
+                             f"{err} (scale {scale})")
+    info["tensors_checked"] = counts
+    info["stack_forward"] = {"max_abs_err": err, "max_abs": scale,
+                             "shape": f"CFG batch {b}, {RES // 8}^2 latents"}
+    return info
+
+
+def cli_real_phase():
+    """The command line without --stub-guidance on a released-layout
+    checkpoint set at the published widths (a temporary directory, deleted
+    at the end): the set written from real_sources, the loaders checked on
+    the card (check_real_loaders), stages 1 -> 2 -> 3 through launch.main
+    with the set's overrides, then eval_avatar. Asserts each stage's
+    run.json, that LPIPS was loaded, which face-identity branch ran (the
+    JAX package's loudly warned fallback without insightface), each
+    stage's K1/K2/K3 launches, and EVAL.json's keys. Returns {"launches":
+    {stage: launches}, "loaders": ..., "face_identity": branch}."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from gaussianip_tpu_torch import eval_avatar, launch
+    from gaussianip_tpu_torch.system import pipeline as pl
+    from gaussianip_tpu_torch.system import refine as refine_mod
+    from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.system.standin import (random_faces,
+                                                     write_checkpoint_set)
+    from gaussianip_tpu_torch.utils.config import load_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "configs", "exp.yaml")
+    tmp = tempfile.mkdtemp(prefix="gip_real_")
+    out = {}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        src = real_sources(gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = write_checkpoint_set(
+            os.path.join(tmp, "pretrained"), texts=[
+                pl.RECIPE_PROMPT, pl.RECIPE_NEGATIVE_PROMPT,
+                refine_mod.REFINE_NEGATIVE_PROMPT,
+                "full body photo, left right front back view, overhead view"],
+            faces=random_faces(SEED), **src)
+        files = written["files"]
+        sizes = {k: os.path.getsize(p) for k, p in files.items()}
+        log("cli:real:write", build_s=round(build_s, 3),
+            write_s=round(time.perf_counter() - t0, 3),
+            total_bytes=sum(sizes.values()), bytes=sizes,
+            params_m={k: round(sum(p.numel() for p in m.parameters()) / 1e6,
+                               3) for k, m in src.items()})
+        cfg = load_config(config, *written["overrides"])
+        info = check_real_loaders(src, written, cfg)
+        del src
+        torch.cuda.empty_cache()
+        for k, v in info.items():
+            log(f"cli:real:{k}", **(v if isinstance(v, dict) else {"v": v}))
+
+        log_path = os.path.join(tmp, "logs")
+        root = os.path.join(log_path, "real")
+        args = ["--config", config, "--cur_time", "real",
+                f"system.log_path={log_path}", *written["overrides"],
+                *CLI_REAL_OVERRIDES]
+        warnings = []
+
+        class _Warnings(logging.Handler):
+            def emit(self, record):
+                if record.levelno >= logging.WARNING:
+                    warnings.append(record.getMessage())
+
+        handler = _Warnings()
+        logging.getLogger("gaussianip_tpu_torch").addHandler(handler)
+        lpips_loaded = []
+        load_lpips = pl.load_lpips
+
+        def recorded_lpips(*a, **kw):
+            lpips_loaded.append(load_lpips(*a, **kw))
+            return lpips_loaded[-1]
+
+        loaders = ((pl, "load_real_models"), (pl, "load_text_encoder"),
+                   (pl, "load_image_encoder"), (pl, "load_ip_adapter_proj"),
+                   (pl, "face_identity"), (s1, "train_stage1"),
+                   (refine_mod, "render_refine_views"),
+                   (refine_mod, "refine_views"))
+
+        def manifest():
+            with open(os.path.join(root, "run.json")) as f:
+                return json.load(f)
+
+        def stage(name, argv):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with StepClock() as clock, watch_calls(*loaders) as calls:
+                _, got = count_launches(lambda: launch.main([*args, *argv]))
+            wall = time.perf_counter() - t0
+            out[name] = got
+            return wall, clock, calls, got
+
+        pl.load_lpips = recorded_lpips
+        try:
+            n = CLI_REAL_STEPS
+            wall, clock, calls, got = stage("stage1", [
+                "--train", "--stage", "stage1", "--max_steps", str(n)])
+            m = manifest()
+            want_k3 = K3_SITES * n
+            if (got["fwd"], got["bwd"], got["conv3x3"],
+                    got["conv3x3_hopper"]) != (n + 1 + REFINE_VIEWS // 4, n,
+                                              want_k3, want_k3):
+                raise AssertionError(f"cli:real stage1: launches {got}")
+            if m.get("stage1") != "done" or m.get("stage1_steps") != n:
+                raise AssertionError(f"cli:real stage1: run.json {m}")
+            face = "fallback" if any("fallback face identity" in w
+                                     for w in warnings) else "insightface"
+            smplx = any("SMPL-X model not found" in w for w in warnings)
+            if not smplx:
+                raise AssertionError("cli:real: no synthetic-body warning")
+            sec = lambda k: round(sum(s for s, _ in calls[k]), 3)
+            log("cli:real:stage1", steps=n, wall_s=round(wall, 3),
+                median_ms_per_step=round(clock.median_ms(), 3),
+                stage1_wall_s=m["stage1_wall_s"],
+                load_real_models_s=sec("load_real_models"),
+                load_text_encoder_s=sec("load_text_encoder"),
+                load_image_encoder_s=sec("load_image_encoder"),
+                load_ip_adapter_proj_s=sec("load_ip_adapter_proj"),
+                face_identity_s=sec("face_identity"),
+                train_s=sec("train_stage1"),
+                handoff_render_s=sec("render_refine_views"),
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                               3), face_identity=face,
+                text_cache=len(os.listdir(os.path.join(root, "text_cache"))),
+                launches=got)
+
+            wall, _, calls, got = stage("stage2", ["--stage", "stage2"])
+            want_k3 = K3_SITES * REFINE_STEPS * REFINE_CALLS_PER_STEP
+            if (got["fwd"], got["bwd"], got["conv3x3"],
+                    got["conv3x3_hopper"]) != (0, 0, want_k3, want_k3):
+                raise AssertionError(f"cli:real stage2: launches {got}")
+            small = npz_shapes(os.path.join(root, "after_refine.npz"))
+            cy, cx = refine_mod.CROP_Y, refine_mod.CROP_X
+            th = ((cy[1] - cy[0]) // 2, (cx[1] - cx[0]) // 2)
+            if manifest().get("stage2") != "done" or small != {
+                    "refined_rgbs_small": ((REFINE_VIEWS, *th, 3),
+                                           "float32")}:
+                raise AssertionError(f"cli:real stage2: {small}")
+            log("cli:real:stage2", wall_s=round(wall, 3),
+                load_real_models_s=sec("load_real_models"),
+                refine_views_s=sec("refine_views"),
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                               3), launches=got)
+
+            wall, _, _, got = stage("stage3", [
+                "--train", "--stage", "stage3", "--max_steps", str(n)])
+            if (got["fwd"], got["bwd"], got["conv3x3"]) != (
+                    n + CLI_TEST_FRAMES // 4, n, 0):
+                raise AssertionError(f"cli:real stage3: launches {got}")
+            m = manifest()
+            if m.get("stage3") != "done" or not os.path.exists(
+                    m["final_ply"]):
+                raise AssertionError(f"cli:real stage3: run.json {m}")
+            if len(lpips_loaded) != 1 or lpips_loaded[0] is None:
+                raise AssertionError(f"cli:real stage3: LPIPS {lpips_loaded}")
+            log("cli:real:stage3", steps=n, res=HIRES, wall_s=round(wall, 3),
+                stage3_wall_s=m["stage3_wall_s"], lpips="loaded",
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                               3), launches=got)
+        finally:
+            pl.load_lpips = load_lpips
+            logging.getLogger("gaussianip_tpu_torch").removeHandler(handler)
+
+        t0 = time.perf_counter()
+        ev = eval_avatar.main(["--run", root, "--config", config, "--face",
+                               files["face"], "--lpips-vgg",
+                               files["lpips_vgg"], "--lpips-lin",
+                               files["lpips_lin"]])
+        with open(os.path.join(root, "EVAL.json")) as f:
+            saved = json.load(f)
+        if set(saved) != EVAL_KEYS or saved != ev or saved["render_size"] \
+                != HIRES or not np.isfinite([saved[k] for k in (
+                    "psnr", "ssim", "l1", "lpips_vgg")]).all():
+            raise AssertionError(f"cli:real eval_avatar: {saved}")
+        log("cli:real:eval", seconds=round(time.perf_counter() - t0, 3),
+            **{k: v for k, v in saved.items() if k != "ply"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": out, "loaders": info, "face_identity": face}
+
+
 def kernel_bound(info, kind_, ops="ops"):
     """(bound ms, "bytes" or "operations") of K1 ("fwd") or K2 ("bwd") from
     check_kernels' counts."""
@@ -1734,6 +2202,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = cli_phase()
     launches_cli = cli["launches"]
+    torch.cuda.empty_cache()
+    real = cli_real_phase()
+    launches_real = real["launches"]
 
     # 9. kernels line: K1/K2 timed at the stub-guided path's shapes and at
     # stage 3's, launches on the guided path and per path
@@ -1746,6 +2217,8 @@ def main() -> int:
                "stage3": launches_3, "turntable": launches_t}
     cli_launches = lambda k: {stage: v[k]
                               for stage, v in launches_cli.items()}
+    real_launches = lambda k: {stage: v[k]
+                               for stage, v in launches_real.items()}
     src = "gaussianip_tpu_torch/csrc/composite.cu"
     kernels = []
     for kind_, name, rep, err in (
@@ -1759,7 +2232,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches_g[kind_], "launches_by_path": {
                 **{k: v[kind_] for k, v in by_path.items()},
-                "cli": cli_launches(kind_)},
+                "cli": cli_launches(kind_),
+                "cli:real": real_launches(kind_)},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1777,7 +2251,8 @@ def main() -> int:
         "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
         "launches": launches_g["conv3x3"], "launches_by_path": {
             **{k: v["conv3x3"] for k, v in by_path.items()},
-            "cli": cli_launches("conv3x3")},
+            "cli": cli_launches("conv3x3"),
+            "cli:real": real_launches("conv3x3")},
         "launches_by_variant": {
             "hopper": launches_g["conv3x3_hopper"],
             "general": launches_g["conv3x3_general"]},

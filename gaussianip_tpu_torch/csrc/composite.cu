@@ -29,13 +29,17 @@
 //           pack, with global atomics.
 //
 // Semantics (as the Pallas kernels and the CUDA rasterizer): alpha =
-// min(exp(power), 0.99); alpha < 1/255 is skipped; an instance whose
+// min(exp(power), 0.99); alpha < 1/255 is skipped, decided on the power:
+// power < ln(1/255) in float32, the power evaluated as
+// (a0 + x (ax + x axx)) + y ((ay + x axy) + y ayy) with one rounding per
+// operation (no FMA), so that the plain versions, which evaluate it so,
+// make the same decision at every pixel; an instance whose
 // inclusion would drop T below 1e-4 is dropped with everything behind it;
 // the gradient of alpha is NOT gated at the 0.99 cap (dpower = dalpha*raw);
 // K2 rebuilds T from T_stop = 1 - alpha_out.
 //
-// What bounds them on the H100: per (instance, pixel) pair K1 does 22 f32
-// operations (an FMA counts 2) with one exp, K2 43 with one exp, a
+// What bounds them on the H100: per (instance, pixel) pair K1 does 23 f32
+// operations (an FMA counts 2) with one exp, K2 44 with one exp, a
 // reciprocal and its share of the reduction of 10 gradient terms per
 // instance over the tile (itemised in chip_smoke.py). The bytes are
 // ~44 B per instance read and 8 KB of output per tile (K2: 32 B of gather
@@ -58,13 +62,15 @@
 // - CTAs take the tiles in the order the wrapper gives: the longest
 //   segments first, so they do not run last.
 // - Each staged instance is one 48 B record, read with 3 vector loads per
-//   thread and reused for the thread's PPT pixels from registers. Its
-//   coefficients are pre-scaled by log2(e) at staging, so alpha is one
-//   ex2.approx; 1 / (1 - alpha) is one rcp.approx (both PTX, so the build
-//   flags, shared with conv3x3.cu, stay as they are). K1 and K2 evaluate
-//   the power with the same code, so the backward sees the forward's gates.
+//   thread and reused for the thread's PPT pixels from registers. alpha is
+//   one ex2.approx of the power times log2(e); 1 / (1 - alpha) is one
+//   rcp.approx (both PTX, so the build flags, shared with conv3x3.cu, stay
+//   as they are). K1 and K2 evaluate the power with the same code, so the
+//   backward sees the forward's gates.
 // - The power is u + y (v + y ayy) with u, v per thread and instance, since
-//   a thread's pixels share x: 2 FMAs per pixel. K2 sums dpower, dpower y
+//   a thread's pixels share x: 2 multiplies and 2 adds per pixel, each
+//   rounded on its own (__fmul_rn / __fadd_rn: no FMA contraction, which
+//   the plain versions could not reproduce). K2 sums dpower, dpower y
 //   and dpower y^2 over the thread's pixels and forms the six coefficient
 //   terms (1, x, y, x^2, xy, y^2) once per instance.
 // - K1 leaves the segment once no pixel of the warp is live (__all_sync
@@ -94,13 +100,13 @@ constexpr int GROUP = 3;        // instances per transposed reduction
 constexpr int K1_PPT = 2;       // pixels per thread of K1
 constexpr int K2_PPT = 4;       // and of K2
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LOG2_ALPHA_MIN = -7.99435343685886f;  // log2(1/255)
+// ln(1/255) in float32 (composite_cuda.py's LOG_ALPHA_MIN): the 1/255 gate
+constexpr float LOG_ALPHA_MIN = -5.5412636f;
 
-// One staged instance: the coefficients times log2(e), then the features.
+// One staged instance: the power coefficients, then the features.
 struct __align__(16) Inst {
   float4 c;   // a0 ax ay axx
   float4 cf;  // axy ayy r g
@@ -122,10 +128,8 @@ __device__ __forceinline__ float rcp(float x) {
 __device__ __forceinline__ Inst load_inst(const float* __restrict__ col,
                                           long long e) {
   Inst v;
-  v.c = make_float4(col[0] * LOG2E, col[e] * LOG2E, col[2 * e] * LOG2E,
-                    col[3 * e] * LOG2E);
-  v.cf = make_float4(col[4 * e] * LOG2E, col[5 * e] * LOG2E, col[8 * e],
-                     col[9 * e]);
+  v.c = make_float4(col[0], col[e], col[2 * e], col[3 * e]);
+  v.cf = make_float4(col[4 * e], col[5 * e], col[8 * e], col[9 * e]);
   v.f = make_float4(col[10 * e], col[11 * e], col[12 * e], 0.f);
   return v;
 }
@@ -141,7 +145,7 @@ __device__ __forceinline__ bool reaches_rows(const Inst& q, float ylo,
   const float a = q.cf.y - q.cf.x * q.cf.x * k;
   if (!(a < 0.f)) return true;
   const float b = q.c.z - 2.0f * q.c.y * q.cf.x * k;
-  const float c = q.c.x - q.c.y * q.c.y * k - LOG2_ALPHA_MIN;
+  const float c = q.c.x - q.c.y * q.c.y * k - LOG_ALPHA_MIN;
   const float disc = b * b - 4.0f * a * c;
   if (disc < 0.f) return false;
   const float yc = b / (-2.0f * a);
@@ -175,18 +179,19 @@ __device__ __forceinline__ int stage_batch(Inst* dst, const float* base,
   return __popc(mask);
 }
 
-// log2 of the raw alpha along the thread's column x: u + y (v + y ayy)
+// The power (the log of the raw alpha) along the thread's column x:
+// u + y (v + y ayy), one rounding per operation
 struct Column {
   float u, v, w;
 };
 
 __device__ __forceinline__ Column column(const Inst& q, float x) {
-  return {fmaf(x, fmaf(x, q.c.w, q.c.y), q.c.x), fmaf(x, q.cf.x, q.c.z),
-          q.cf.y};
+  return {__fadd_rn(q.c.x, __fmul_rn(x, __fadd_rn(q.c.y, __fmul_rn(x, q.c.w)))),
+          __fadd_rn(q.c.z, __fmul_rn(x, q.cf.x)), q.cf.y};
 }
 
-__device__ __forceinline__ float power2(const Column& c, float y) {
-  return fmaf(y, fmaf(y, c.w, c.v), c.u);
+__device__ __forceinline__ float power(const Column& c, float y) {
+  return __fadd_rn(c.u, __fmul_rn(y, __fadd_rn(c.v, __fmul_rn(y, c.w))));
 }
 
 // One step of the transposed reduction: a lane keeps the half of its H
@@ -260,9 +265,10 @@ composite_fwd_kernel(const float* __restrict__ data,
       const float f[5] = {q.cf.z, q.cf.w, q.f.x, q.f.y, q.f.z};
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        const float alpha = fminf(ex2(power2(c, y[i])), ALPHA_MAX);
+        const float pw = power(c, y[i]);
+        const float alpha = fminf(ex2(pw * LOG2E), ALPHA_MAX);
         const float test_T = T[i] * (1.0f - alpha);
-        if (!done[i] && alpha >= ALPHA_MIN) {
+        if (!done[i] && pw >= LOG_ALPHA_MIN) {
           if (test_T < T_EPS) {
             done[i] = true;
           } else {
@@ -394,9 +400,10 @@ composite_bwd_kernel(const float* __restrict__ data,
           const int k = __float_as_int(q.f.w);
 #pragma unroll
           for (int i = 0; i < PPT; ++i) {
-            const float raw = ex2(power2(c, y[i]));
+            const float pw = power(c, y[i]);
+            const float raw = ex2(pw * LOG2E);
             const float alpha = fminf(raw, ALPHA_MAX);
-            if (k <= last[i] && alpha >= ALPHA_MIN) {
+            if (k <= last[i] && pw >= LOG_ALPHA_MIN) {
               const float rom = rcp(1.0f - alpha);
               const float t_ex = T[i] * rom;
               const float w = alpha * t_ex;

@@ -1,7 +1,7 @@
 """The port's command line (port of the repository's launch.py):
 
   python -m gaussianip_tpu_torch.launch --config configs/exp.yaml --train \
-      --cur_time <id> --stage stage1 --stub-guidance [dotted.key=value ...]
+      --cur_time <id> --stage stage1 [--stub-guidance] [dotted.key=value ...]
 
 then `--stage stage2` and `--stage stage3` with the same `--cur_time`.
 Each stage reads and writes <system.log_path>/<cur_time>/: run.json (the
@@ -16,12 +16,17 @@ the JAX package's dtype. TF32 is off on the card
 (gaussianip_tpu_torch.set_precision_policy). The run manifest records the
 device, the compute dtype and the precision policy.
 
-Only the weight-free path runs: `--stub-guidance` (the tiny random
-diffusion stack and the synthetic SMPL-X body). Refused with an error
-naming what is missing: a run without `--stub-guidance` (the checkpoint
-loaders, CLIP encoders and insightface are not ported: ROADMAP.md Queue 1
-item 2), `--export` (the mesh modules: item 4) and `--devices N` with
-N > 1 (data parallel: item 5).
+Without `--stub-guidance` the stages load the released checkpoints named
+by `system.guidance.*_path` (system/pipeline.py's loaders): the SD1.5
+UNet with the IP-Adapter LoRA folded in, the ControlNet, the VAE, the
+CLIP text and image encoders, the face identity (insightface, or a loudly
+warned fallback) and, in stage 3, LPIPS from `system.lpips_vgg_path` /
+`system.lpips_lin_path` (absent: a loud warning and L1 alone). A missing
+SMPL-X model falls back to the synthetic body with a warning.
+`--stub-guidance` runs the tiny random stack and the synthetic body
+instead. Refused with an error naming what is missing: `--export` (the
+mesh modules: ROADMAP.md Queue 1 item 4) and `--devices N` with N > 1
+(data parallel: item 5).
 """
 
 from __future__ import annotations
@@ -48,13 +53,6 @@ def _check_args(args):
         raise NotImplementedError(
             f"--devices {devices}: the port runs on one card; data parallel "
             "is ROADMAP.md Queue 1 item 5")
-    if not args.stub_guidance:
-        raise NotImplementedError(
-            "the real-weights path needs the checkpoint loaders (the SD1.5 "
-            "UNet, ControlNet, VAE and IP-Adapter state dicts, the CLIP "
-            "text and image encoders, insightface, LPIPS), not ported yet: "
-            "ROADMAP.md Queue 1 item 2. Pass --stub-guidance for the "
-            "weight-free run")
     device = getattr(args, "device", "cuda")
     if device == "cuda":
         import torch
@@ -112,6 +110,76 @@ def _stub_stack(cfg, prompt: str, negative_prompt: str, device: str):
         device=device, dtype=compute_dtype(device))
 
 
+def _real_stage1_guidance(cfg, dirs, device: str):
+    """The stage-1 guidance from the released checkpoints: the models, the
+    prompt embeddings (cached under the run's text_cache/ by the md5 of
+    model name and prompt), the identity tokens of the face, the
+    irrelevant face and the zero image at ipa_faceid_s_scale."""
+    import torch
+
+    from .guidance.ipa import (AHDSGuidance, GuidanceConfig,
+                               compute_image_embeds)
+    from .guidance.prompts import make_prompt_embeddings
+    from .system import pipeline as pl
+
+    sys_cfg = cfg["system"]
+    g_cfg = sys_cfg["guidance"]
+    dt = compute_dtype(device)
+    models = pl.load_real_models(g_cfg, dtype=dt, device=device)
+    model_name = g_cfg["pretrained_realistic_model_name_or_path"]
+    pe = make_prompt_embeddings(
+        pl.load_text_encoder(model_name, device),
+        sys_cfg["prompt_processor"]["prompt"],
+        g_cfg["negative_prompt_faceid"], g_cfg.get("null_prompt", ""),
+        cache_dir=dirs.path("text_cache", "x")[:-1], model_name=model_name,
+        device=device)
+    img_enc = pl.load_image_encoder(g_cfg["image_encoder_faceid_path"],
+                                    device)
+    (pos_e, pos_face), (irr_e, irr_face) = pl.face_identity(
+        g_cfg["pil_image_faceid_path"], g_cfg["irr_pil_image_path"])
+    proj = pl.load_ip_adapter_proj(g_cfg["ip_ckpt_faceid_v2_path"],
+                                   device=device)
+    t = lambda a: torch.as_tensor(a, device=device)
+    img_embeds = compute_image_embeds(
+        proj, t(pos_e), t(irr_e), img_enc(pos_face), img_enc(irr_face),
+        img_enc(np.zeros_like(pos_face)),
+        s_scale=float(g_cfg.get("ipa_faceid_s_scale", 0.4)))
+    return AHDSGuidance(models, pe, img_embeds, GuidanceConfig(
+        guidance_scale=float(g_cfg.get("guidance_scale", 7.5)),
+        guidance_rescale=float(g_cfg.get("guidance_rescale", 0.75)),
+        ipa_scale=float(g_cfg.get("ipa_faceid_scale", 0.5)),
+        use_anpg=bool(g_cfg.get("use_anpg", True)),
+        grad_clip_pixel=bool(g_cfg.get("grad_clip_pixel", True)),
+        grad_clip_threshold=float(g_cfg.get("grad_clip_threshold", 1.0))))
+
+
+def _real_refine_inputs(cfg, device: str):
+    """Stage 2's models, text encoder and identity tokens from the
+    released checkpoints: the positive face's tokens for the cond row, the
+    zero face's for the uncond row (ProjPlusModel at s_scale 0.5 with the
+    shortcut)."""
+    import torch
+
+    from .system import pipeline as pl
+    from .system.refine import RefineModels, refine_identity_tokens
+
+    g_cfg = cfg["system"]["guidance"]
+    models = RefineModels(*pl.load_real_models(
+        g_cfg, dtype=compute_dtype(device), device=device))
+    enc = pl.load_text_encoder(
+        g_cfg["pretrained_realistic_model_name_or_path"], device)
+    img_enc = pl.load_image_encoder(g_cfg["image_encoder_faceid_path"],
+                                    device)
+    (pos_e, pos_face), _ = pl.face_identity(g_cfg["pil_image_faceid_path"],
+                                            g_cfg["irr_pil_image_path"])
+    proj = pl.load_ip_adapter_proj(g_cfg["ip_ckpt_faceid_v2_path"],
+                                   device=device)
+    ip_cond, ip_uncond = refine_identity_tokens(
+        proj, torch.as_tensor(pos_e, device=device), img_enc(pos_face),
+        img_enc(np.zeros_like(pos_face)))
+    return models, enc, ip_cond, ip_uncond
+
+
 def run_stage1(cfg, dirs, args):
     import torch
 
@@ -161,8 +229,12 @@ def run_stage1(cfg, dirs, args):
         max_steps=int(cfg["trainer"]["max_steps"]),
     )
     cam_cfg = camera_config(cfg, s1.render_height, s1.render_width)
-    guidance = _stub_stack(cfg, sys_cfg["prompt_processor"]["prompt"],
-                           sys_cfg["prompt_processor"]["negative_prompt"], dev)
+    if args.stub_guidance:
+        guidance = _stub_stack(cfg, sys_cfg["prompt_processor"]["prompt"],
+                               sys_cfg["prompt_processor"]["negative_prompt"],
+                               dev)
+    else:
+        guidance = _real_stage1_guidance(cfg, dirs, dev)
 
     # 512^2 training renders: footprints fit a 4x4-tile budget (radii halve
     # vs 1024^2); eval/refine/stage3 use the default d_max=25
@@ -259,19 +331,22 @@ def run_stage2(cfg, dirs, args):
         images = torch.as_tensor(data["images"], device=dev)
         control = torch.as_tensor(data["control_images"], device=dev)
 
-    sz = int(sys_cfg.get("stub_image_size", 64))
-    g = _stub_stack(cfg, "person", "bad", dev)
-    models = RefineModels(*g.models)
-    enc = fake_text_encoder(77, 32)
-    resize = lambda x: linear_resize(x.permute(0, 3, 1, 2), sz,
-                                     sz).permute(0, 2, 3, 1)
-    images, control = resize(images), resize(control)
-    ip_tok = np.zeros((4, 32), np.float32)
+    if args.stub_guidance:
+        sz = int(sys_cfg.get("stub_image_size", 64))
+        g = _stub_stack(cfg, "person", "bad", dev)
+        models = RefineModels(*g.models)
+        enc = fake_text_encoder(77, 32)
+        resize = lambda x: linear_resize(x.permute(0, 3, 1, 2), sz,
+                                         sz).permute(0, 2, 3, 1)
+        images, control = resize(images), resize(control)
+        ip_cond = ip_uncond = np.zeros((4, 32), np.float32)
+    else:
+        models, enc, ip_cond, ip_uncond = _real_refine_inputs(cfg, dev)
     contexts = refine_contexts(enc, sys_cfg["prompt_processor"]["prompt"],
-                               ip_tok, ip_tok, dev)
+                               ip_cond, ip_uncond, dev)
 
     # the shared forward-diffusion draw of every view's latents
-    s = sz // models.vae.cfg.downscale
+    s = images.shape[1] // models.vae.cfg.downscale
     noise = torch.randn((4, s, s), device=dev, generator=torch.Generator(
         device=dev).manual_seed(2024))
     refined = refine_views(models, images, control, contexts, noise,
@@ -331,8 +406,13 @@ def run_stage3(cfg, dirs, args):
         lambda_lpips=float(sys_cfg.get("lambda_lpips", 15)),
         max_grad=float(sys_cfg["max_grad"]),
     )
-    # 10 * L1 + 15 * LPIPS needs the LPIPS loader; the stub run is L1 alone
+    # 10 * L1 + 15 * LPIPS when the VGG / LPIPS checkpoints resolve (a loud
+    # warning and L1 alone otherwise); the stub run is L1 alone
     lpips_fn = None
+    if not args.stub_guidance:
+        from .system.pipeline import load_lpips
+
+        lpips_fn = load_lpips(sys_cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     view_ids = draw_view_ids(gen, n_views, s3.train_bs, s3.max_steps, dev)
     split_noise = torch.randn((2, gs.capacity, 3), generator=gen, device=dev)
@@ -386,7 +466,7 @@ def parse_args(argv=None):
                         help="override system.stage (stage1|stage2|stage3)")
     parser.add_argument("--stub-guidance", action="store_true",
                         help="weight-free run (tiny random diffusion stack, "
-                             "synthetic SMPL-X body); required for now")
+                             "synthetic SMPL-X body)")
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--resume", action="store_true",
                         help="resume stage 1 from the run dir's latest "

@@ -2,10 +2,11 @@
 refine.py):
 
   python -m gaussianip_tpu_torch.refine --config_path configs/exp.yaml \
-      --log_path logs --cur_time <id> --stub-guidance [--device cpu]
+      --log_path logs --cur_time <id> [--stub-guidance] [--device cpu]
 
 A thin wrapper over the in-process stage-2 path (launch.run_stage2), with
-launch's refusals: `--stub-guidance` is required for now."""
+launch's refusals; without `--stub-guidance` it loads the checkpoints the
+config names."""
 
 from __future__ import annotations
 

@@ -34,7 +34,9 @@ import torch
 
 from .preprocess import gaussian_power_coeffs
 
-ALPHA_MIN = 1.0 / 255.0
+# the 1/255 gate on alpha as both K1/K2 and the plain versions decide it:
+# the power (the log of alpha) against ln(1/255) in float32
+LOG_ALPHA_MIN = -5.5412636
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 KERNEL_TILE = 16  # K1/K2 run 16x16 tiles
@@ -46,6 +48,24 @@ def _pixel_features(tile: int, like: torch.Tensor) -> torch.Tensor:
     x = (idx % tile).to(like.dtype)
     y = (idx // tile).to(like.dtype)
     return torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])
+
+
+def _power(c, featpix):
+    """The power [BT, C, P] of coefficients c [6, BT, C] (rows a0 ax ay axx
+    axy ayy) at the tile's pixels, evaluated as K1/K2 evaluate it, one
+    rounding per operation: (a0 + x (ax + x axx)) + y ((ay + x axy) +
+    y ayy). The 1/255 gate then falls on the same pixels as in the
+    kernels."""
+    a0, ax, ay, axx, axy, ayy = (t[..., None] for t in c)
+    x, y = featpix[1], featpix[2]
+    u = a0 + x * (ax + x * axx)
+    v = ay + x * axy
+    return u + y * (v + y * ayy)
+
+
+def _live(power):
+    """alpha >= 1/255, decided on the power as K1/K2 decide it."""
+    return power >= power.new_tensor(LOG_ALPHA_MIN)
 
 
 def pack_instances(packed, gidx, tile_of, n_tiles_x: int, n_tiles_y: int,
@@ -105,9 +125,9 @@ def composite_fwd_plain(data, starts, counts, tile: int = 16,
     for k0 in range(0, max_count, chunk):
         k = torch.arange(k0, k0 + chunk, device=dev)
         _, ok, c, f = _segment_rows(data, starts, counts, k)
-        power = torch.einsum("kbc,kp->bcp", c, featpix)
+        power = _power(c, featpix)
         alpha = torch.clamp(torch.exp(power), max=ALPHA_MAX)
-        live = ok[..., None] & (alpha >= ALPHA_MIN)
+        live = ok[..., None] & _live(power)
         alpha = torch.where(live, alpha, torch.zeros_like(alpha))
         t_incl = T[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
         t_excl = torch.cat([T[:, None, :], t_incl[:, :-1]], dim=1)
@@ -145,9 +165,10 @@ def composite_bwd_plain(data, starts, counts, out, gout, tile: int = 16,
     for k0 in reversed(range(0, max_last + 1, chunk)):
         k = torch.arange(k0, k0 + chunk, device=dev)
         idx, ok, c, f = _segment_rows(data, starts, counts, k)
-        raw = torch.exp(torch.einsum("kbc,kp->bcp", c, featpix))
+        power = _power(c, featpix)
+        raw = torch.exp(power)
         alpha = torch.clamp(raw, max=ALPHA_MAX)
-        contrib = (ok[..., None] & (alpha >= ALPHA_MIN)
+        contrib = (ok[..., None] & _live(power)
                    & (k.to(data.dtype)[None, :, None] <= last[:, None, :]))
         zero = torch.zeros_like(alpha)
         om = torch.where(contrib, 1.0 - alpha, torch.ones_like(alpha))

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from _torch_parity import make_cameras, make_states, n, t
+from gaussianip_tpu_torch.render.composite_cuda import LOG_ALPHA_MIN
 
 torch.set_num_threads(1)
 CHUNK = 128
@@ -254,9 +255,9 @@ def _reduce_scatter(v):
 
 
 def _reaches_rows(c, ylo, yhi):
-    """csrc/composite.cu reaches_rows in float32 on the log2(e)-scaled
-    coefficients c[0:6]."""
-    c = (np.asarray(c, np.float32) * np.float32(1.4426950408889634))
+    """csrc/composite.cu reaches_rows in float32 on the coefficients
+    c[0:6]."""
+    c = np.asarray(c, np.float32)
     f = np.float32
     if not c[3] < 0:
         return True
@@ -265,13 +266,39 @@ def _reaches_rows(c, ylo, yhi):
     if not a < 0:
         return True
     b = c[2] - f(2) * c[1] * c[4] * k
-    cc = c[0] - c[1] * c[1] * k - f(-7.99435343685886)
+    cc = c[0] - c[1] * c[1] * k - f(LOG_ALPHA_MIN)
     disc = b * b - f(4) * a * cc
     if disc < 0:
         return False
     yc = b / (f(-2) * a)
     h = np.sqrt(disc) / (f(-2) * a) + f(1)
     return bool(yc + h >= ylo and yc - h <= yhi)
+
+
+def _live32(c, x, y):
+    """The kernels' 1/255 gate: the power of c[0:6] at pixels (x, y),
+    evaluated in float32 as csrc/composite.cu does (one rounding per
+    operation), against ln(1/255) in float32."""
+    c = np.asarray(c, np.float32)
+    x, y = np.float32(x), np.float32(y)
+    u = c[0] + x * (c[1] + x * c[3])
+    v = c[2] + x * c[4]
+    return u + y * (v + y * c[5]) >= np.float32(LOG_ALPHA_MIN)
+
+
+def test_log_alpha_min_is_the_kernels():
+    """The plain versions' gate constant is ln(1/255) in float32, and
+    csrc/composite.cu holds the same float."""
+    import math
+    import os
+    import re
+
+    assert np.float32(LOG_ALPHA_MIN) == np.float32(math.log(1 / 255))
+    src = open(os.path.join(os.path.dirname(__file__), "..",
+                            "gaussianip_tpu_torch", "csrc",
+                            "composite.cu")).read()
+    lit = re.search(r"LOG_ALPHA_MIN = (-?[0-9.]+)f;", src).group(1)
+    assert np.float32(float(lit)) == np.float32(LOG_ALPHA_MIN)
 
 
 def _warp_pixels(ws, ppt):
@@ -322,7 +349,7 @@ def _emulate_k1(data, starts, counts, ppt=K1_PPT):
                         alpha = np.minimum(np.exp(
                             c[0] + c[1] * x + c[2] * y + c[3] * x * x
                             + c[4] * x * y + c[5] * y * y), 0.99)
-                        live = ~done & (alpha >= 1 / 255)
+                        live = ~done & _live32(c, x, y)
                         test_t = T * (1.0 - alpha)
                         stop = live & (test_t < 1e-4)
                         use = live & ~stop
@@ -418,7 +445,7 @@ def _emulate_k2(data, packed, gidx, starts, out, gout, ntx,
                                          + c[3] * x * x + c[4] * x * y
                                          + c[5] * y * y)
                             alpha = np.minimum(raw, 0.99)
-                            m = (kept[j] <= last) & (alpha >= 1 / 255)
+                            m = (kept[j] <= last) & _live32(c, x, y)
                             om = 1.0 - alpha
                             t_ex = T / om
                             w = np.where(m, alpha * t_ex, 0.0)

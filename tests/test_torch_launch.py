@@ -299,7 +299,6 @@ def test_jax_run_continues_in_port(jax_run):
 
 
 @pytest.mark.parametrize("args,error", [
-    (["--device", "cpu"], "Queue 1 item 2"),
     (["--device", "cpu", "--stub-guidance", "--export"], "Queue 1 item 4"),
     (["--device", "cpu", "--stub-guidance", "--devices", "2"],
      "Queue 1 item 5"),
@@ -316,9 +315,29 @@ def test_cli_refuses(tmp_path, monkeypatch, args, error):
     assert not os.path.exists(tmp_path / "x")
 
 
+def test_cli_without_stub_needs_checkpoints(tmp_path):
+    """Without --stub-guidance stage 1 loads the configured checkpoints;
+    where they are absent (configs/exp.yaml's pretrained/ paths) it raises
+    FileNotFoundError naming the directory and --stub-guidance."""
+    from gaussianip_tpu_torch import launch
+
+    with pytest.raises(FileNotFoundError, match="Realistic_Vision.*"
+                       "--stub-guidance"):
+        launch.main(["--config", CONFIG, "--cur_time", "x", "--device",
+                     "cpu", f"system.log_path={tmp_path}", *TINY, "--train",
+                     "--stage", "stage1", "--max_steps", "1"])
+
+
 def test_refine_entry_refuses_without_stub(tmp_path):
+    """The refine entry without --stub-guidance loads the checkpoints and
+    raises FileNotFoundError, naming --stub-guidance, where they are
+    absent."""
     from gaussianip_tpu_torch import refine
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    os.makedirs(tmp_path / "x")
+    img = np.zeros((N_VIEWS, 16, 16, 3), np.float32)
+    np.savez(tmp_path / "x" / "before_refine.npz", images=img,
+             control_images=img)
+    with pytest.raises(FileNotFoundError, match="--stub-guidance"):
         refine.main(["--config_path", CONFIG, "--log_path", str(tmp_path),
                      "--cur_time", "x", "--device", "cpu"])

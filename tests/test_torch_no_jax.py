@@ -1,6 +1,8 @@
 """The port stands alone: no module of gaussianip_tpu_torch/ and not
-chip_smoke.py imports jax, flax or the JAX package. An AST scan (the test
-process itself has jax imported, so sys.modules proves nothing)."""
+chip_smoke.py imports jax, flax or the JAX package, nor the packages the
+JAX package's loaders lean on and the card's machine does not promise
+(transformers, safetensors, regex, ftfy). An AST scan (the test process
+itself has jax imported, so sys.modules proves nothing)."""
 
 import ast
 import os
@@ -8,7 +10,8 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "gaussianip_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "gaussianip_tpu", "transformers",
+             "safetensors", "regex", "ftfy")
 
 
 def _sources():
