@@ -25,7 +25,14 @@ K3 against its plain version at every conv shape of a refine denoise call
 the tiny stack's refine on the card against the CPU, the VCR refinement
 at 1024^2 (stage 2), K1/K2 against their plain versions at 1024^2 x 4,
 stage-3 steps with a random-weight LPIPS at VGG16 width across the
-densify, and the turntable. Last, the port's command line
+densify, and the turntable. Then the final avatar's animation: the
+animation command line (gaussianip_tpu_torch/animation.py) in-process on
+its .ply and a seeded random motion, 90 frames at 1024^2 (K1 once a
+frame), K1/K2 against their plain versions on its last re-posed frame,
+the closest-point bind at the SMPL-X sizes (10,475 vertices, 20,908
+faces) against a dense evaluation, and animation-space refine steps (LBS
+deformation of 100000 canonical points, capacity 524288, 4 views at
+512^2) on the SD1.5-width guidance. Last, the port's command line
 (gaussianip_tpu_torch/launch.py) with --stub-guidance at the recipe's
 sizes: stage 1 with validation, a checkpoint, a densify and a prune, its
 --resume, stage 2, and stage 3 in a child process that runs the launch
@@ -139,6 +146,25 @@ REFINE_REF_TOL = 6e-2
 # comparison needs, so that vae_decode's clamp does not decide it (the
 # same floor as the CPU parity test's)
 REFINE_REF_INTERIOR = 0.2
+# animation (gaussianip_tpu_torch/animation.py) on the final avatar: a
+# seeded random motion ([ANIM_MOTION, 55, 3] axis-angle, sigma 0.05, key
+# `poses`) on the synthetic body, ANIM_FRAMES frames at 1024^2 with --play
+# --rotate; the bind at the SMPL-X sizes (10,475 vertices, 20,908 faces of
+# a synthetic body) held against a dense evaluation over every face on a
+# strided sample of BIND_SAMPLE points: |d| and the closest point within
+# BIND_TOL (float32 rounding of O(1) coordinates is ~1e-7; a wrong face or
+# region is O(0.01) or more)
+ANIM_MOTION = 120
+ANIM_FRAMES = 90
+SMPLX_SIZES = (10475, 20908)
+BIND_SAMPLE = 2000
+BIND_TOL = 1e-5
+# the animation-space refine (system/anim_refine.py) at the stage-1
+# recipe's shapes: PTS_NUM canonical points on the A-pose surface of the
+# SMPL-X-size body, capacity CAPACITY, 4 views at 512^2, K = 6, the
+# SD1.5-width random guidance; AR_WARMUP + AR_STEPS steps
+AR_WARMUP = 2
+AR_STEPS = 4
 # the port's command line (gaussianip_tpu_torch/launch.py) on configs/
 # exp.yaml with --stub-guidance at the recipe's sizes: stage 1 for
 # CLI_STEPS steps with validation and a checkpoint after step index 10, a
@@ -1250,6 +1276,286 @@ def turntable_phase(gs):
     return launches
 
 
+def anim_motion() -> np.ndarray:
+    """The seeded random motion, [ANIM_MOTION, 55, 3] axis-angle."""
+    rng = np.random.default_rng(SEED)
+    return rng.normal(0, 0.05, (ANIM_MOTION, 55, 3)).astype(np.float32)
+
+
+def animation_phase(gs, tmp: str, dev="cuda"):
+    """The animation command line in-process, as a user runs it
+    (`python -m gaussianip_tpu_torch.animation --stub-body --play --rotate
+    --W 1024 --H 1024 --max_frames ANIM_FRAMES`), on the final avatar's
+    .ply and the seeded motion written into `tmp`: the culled count, the
+    bind's seconds, the ms per frame (re-pose + render + host copy,
+    between consecutive frames' starts), the writer, the peak memory
+    above what was held, a profile of 3 more frames; K1 launched once a
+    frame and K2 never; every frame finite and in [0, 1];
+    some alpha coverage; the file written. Returns a dict with the
+    launches, the animator after its last frame, that frame's azimuth,
+    the .ply and the motion."""
+    import torch
+    from gaussianip_tpu_torch import animation
+    from gaussianip_tpu_torch.human import animation as am
+    from gaussianip_tpu_torch.model.ply import state_to_ply
+    from gaussianip_tpu_torch.utils import saving
+
+    ply = os.path.join(tmp, "avatar.ply")
+    state_to_ply(gs, ply)
+    motion = anim_motion()
+    mpath = os.path.join(tmp, "walk.npz")
+    np.savez(mpath, poses=motion)
+    seen = {"stamps": [], "frames": [], "coverage": []}
+
+    def bind(fn):
+        def run(self, *a, **kw):
+            seen["animator"] = self
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seen["culled"] = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            seen["bind_s"] = time.perf_counter() - t0
+            return seen["culled"]
+        return run
+
+    def repose(fn):
+        def run(self, frame):
+            seen["stamps"].append(time.perf_counter())
+            return fn(self, frame)
+        return run
+
+    def render_frame(fn):
+        def run(*a, **kw):
+            img = fn(*a, **kw)
+            seen["frames"].append(torch.stack([
+                torch.isfinite(img).all().float(), img.amin(), img.amax()]))
+            return img
+        return run
+
+    def render(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            seen["coverage"].append((out.alpha > 0).float().mean())
+            return out
+        return run
+
+    def save_video(fn):
+        def run(*a, **kw):
+            seen["stamps"].append(time.perf_counter())
+            seen["written"] = fn(*a, **kw)
+            return seen["written"]
+        return run
+
+    argv = ["--ply", ply, "--motion", mpath, "--stub-body", "--play",
+            "--rotate", "--W", str(HIRES), "--H", str(HIRES), "--max_frames",
+            str(ANIM_FRAMES), "--save", tmp, "--device", dev]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with patched((am.AvatarAnimator, "bind", bind),
+                 (am.AvatarAnimator, "repose", repose),
+                 (am.AvatarAnimator, "render_frame", render_frame),
+                 (am, "render", render), (saving, "save_video", save_video)):
+        out, launches = count_launches(lambda: animation.main(argv))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    frames = len(seen["frames"])
+    want = {"fwd": ANIM_FRAMES, "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
+            "conv3x3_general": 0}
+    if frames != ANIM_FRAMES or launches != want:
+        raise AssertionError(f"animation: {frames} frames, launches "
+                             f"{launches} != {want}")
+    stats = torch.stack(seen["frames"]).cpu().numpy()
+    if not (stats[:, 0].all() and stats[:, 1].min() >= 0.0
+            and stats[:, 2].max() <= 1.0):
+        raise AssertionError(f"animation: frames not finite in [0, 1]: "
+                             f"min {stats[:, 1].min()} max "
+                             f"{stats[:, 2].max()}")
+    coverage = torch.stack(seen["coverage"])
+    if not float(coverage.max()) > 0:
+        raise AssertionError("animation: no frame has alpha coverage")
+    written = seen["written"]
+    if not (written in (out, out + ".npy") and os.path.exists(written)
+            and os.path.getsize(written) > 0):
+        raise AssertionError(f"animation: {out} not written ({written})")
+    frame_ms = np.diff(seen["stamps"]) * 1e3
+    loaded = gs.n_active
+    log("animation", loaded=loaded, culled=seen["culled"],
+        culled_share=round(seen["culled"] / loaded, 6),
+        bind_s=round(seen["bind_s"], 4), frames=frames, res=HIRES,
+        median_ms_per_frame=round(float(np.median(frame_ms)), 3),
+        first_frame_ms=round(float(frame_ms[0]), 3),
+        writer="mp4" if written.endswith(".mp4") else "npy",
+        bytes=os.path.getsize(written), peak_above_start_gib=round(peak, 3),
+        coverage=spread(coverage), launches=launches)
+    animator, frame = seen["animator"], iter(range(ANIM_FRAMES, 10 ** 6))
+
+    def one_frame():  # as render_motion runs a frame
+        i = next(frame)
+        animator.repose(i % animator.n_frames)
+        img = animator.render_frame(float(i % 360), height=HIRES,
+                                    width=HIRES)
+        return (img * 255).to(torch.uint8).cpu()
+
+    profile_window(one_frame, 3, "profile_animation")
+    return {"launches": launches, "animator": animator,
+            "azimuth": float((frames - 1) % 360), "ply": ply,
+            "motion": motion}
+
+
+def bind_full_phase(ply: str, motion, dev="cuda"):
+    """signed_distance_to_mesh at the SMPL-X sizes: the loaded avatar's
+    points against the frame-0 mesh of a synthetic body with 10,475
+    vertices and 20,908 faces, as AvatarAnimator.bind calls it; seconds,
+    peak memory above what was held, blocks. Held against a dense evaluation over every face
+    on a strided sample: |d| and the closest point within BIND_TOL."""
+    import inspect
+
+    import torch
+    from gaussianip_tpu_torch.human.animation import (AvatarAnimator,
+                                                      load_animation_ply)
+    from gaussianip_tpu_torch.human.smplx import make_test_model
+    from gaussianip_tpu_torch.ops.triangle import (closest_point_barycentric,
+                                                   signed_distance_to_mesh)
+
+    params = make_test_model(np.random.default_rng(0), *SMPLX_SIZES,
+                             device=dev)
+    anim = AvatarAnimator(load_animation_ply(ply, device=dev), params,
+                          motion_poses=motion)
+    verts, faces = anim._mesh_at(0), anim.faces
+    pts = anim.gaussians.xyz[:anim.gaussians.n_active]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d, fi, uvw = signed_distance_to_mesh(pts, verts, faces)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    blocks = {k: v.default for k, v in inspect.signature(
+        signed_distance_to_mesh).parameters.items() if k.endswith("block")}
+
+    def closest(f, w):
+        fa = faces[f]
+        return (w[:, 0:1] * verts[fa[:, 0]] + w[:, 1:2] * verts[fa[:, 1]]
+                + w[:, 2:3] * verts[fa[:, 2]])
+
+    idx = torch.arange(0, pts.shape[0], max(1, pts.shape[0] // BIND_SAMPLE),
+                       device=dev)
+    a, b, c = (verts[faces[:, i]][None] for i in range(3))
+    d_ref, cp_ref = [], []
+    with torch.no_grad():
+        for s in range(0, idx.numel(), 128):
+            p = pts[idx[s:s + 128]][:, None]
+            w = closest_point_barycentric(p, a, b, c)  # [128, F, 3]
+            cp = w[..., 0:1] * a + w[..., 1:2] * b + w[..., 2:3] * c
+            d2 = ((p - cp) ** 2).sum(-1)
+            best = d2.argmin(dim=1)
+            d_ref.append(d2.gather(1, best[:, None])[:, 0].sqrt())
+            cp_ref.append(cp[torch.arange(best.numel(), device=dev), best])
+    d_err = float((d[idx].abs() - torch.cat(d_ref)).abs().max())
+    cp_err = float((closest(fi[idx], uvw[idx]) - torch.cat(cp_ref)).abs()
+                   .max())
+    if not (d_err < BIND_TOL and cp_err < BIND_TOL):
+        raise AssertionError(f"animation:bind_full: |d| err {d_err}, closest "
+                             f"point err {cp_err} vs {BIND_TOL}")
+    log("animation:bind_full", points=pts.shape[0], verts=SMPLX_SIZES[0],
+        faces=SMPLX_SIZES[1], seconds=round(secs, 4),
+        peak_above_start_gib=round(peak, 3), **blocks, sample=idx.numel(),
+        d_max_abs_err=d_err, closest_max_abs_err=cp_err)
+
+
+def anim_refine_phase(guidance, motion, gen, dev="cuda"):
+    """Animation-space refine steps at the stage-1 recipe's shapes:
+    PTS_NUM canonical points on the A-pose surface of the SMPL-X-size
+    synthetic body in a capacity-CAPACITY state, 4 views at 512^2, K = 6,
+    `guidance` (the SD1.5-width random stack), the seeded motion; per step
+    one K1, one K2 and K3_SITES K3 launches, finite losses, and a nonzero
+    Adam moment on the canonical xyz; the k-NN's and the blend's ms at the
+    step's shapes, and a profile of 2 more steps. Returns (launches,
+    median ms per step after AR_WARMUP)."""
+    import torch
+    from gaussianip_tpu_torch.data.sampler import CameraSamplerConfig
+    from gaussianip_tpu_torch.human.animation import load_motion
+    from gaussianip_tpu_torch.human.lbs_deform import (
+        LBSDeformer, a2pose_transforms, lbs_diffuse_transforms)
+    from gaussianip_tpu_torch.human.skeleton import (apose_body_pose,
+                                                     sample_surface_points)
+    from gaussianip_tpu_torch.human.smplx import make_test_model
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.gaussians import create_from_pcd
+    from gaussianip_tpu_torch.ops.knn import knn_dist2, mean_dist2_3nn
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system.anim_refine import (
+        AnimRefineConfig, make_anim_refine_step)
+    from gaussianip_tpu_torch.system.stage1 import init_train_state
+
+    params = make_test_model(np.random.default_rng(0), *SMPLX_SIZES,
+                             device=dev)
+    deformer = LBSDeformer(params, canonical_body_pose=torch.as_tensor(
+        apose_body_pose(), device=dev))
+    a_verts = deformer.a_verts
+    canonical = {"a_verts": a_verts, "inv_T_t2a": deformer.inv_T_t2a,
+                 "canonical_offsets": deformer.canonical_offsets}
+    pts = sample_surface_points(a_verts.cpu().numpy(), params.faces,
+                                PTS_NUM, SEED)
+    d2 = mean_dist2_3nn(torch.as_tensor(pts, device=dev))
+    gs = create_from_pcd(pts, np.full((PTS_NUM, 3), 0.5, np.float32),
+                         CAPACITY, d2, device=dev)
+    ts = init_train_state(gs)
+    step = make_anim_refine_step(
+        AnimRefineConfig(render_height=RES, render_width=RES),
+        CameraSamplerConfig(height=RES, width=RES, batch_size=BATCH),
+        RenderConfig(d_max=D_MAX), AdamHyper(), guidance, params,
+        load_motion(motion_poses=motion), canonical)
+    stamps, losses = [], []
+    n_steps = AR_WARMUP + AR_STEPS
+
+    def run():
+        state = ts
+        stamps.append(time.perf_counter())
+        for _ in range(n_steps):
+            state, m = step(state, gen)
+            losses.append(float(m["loss"]))  # the step has ended
+            stamps.append(time.perf_counter())
+        return state
+
+    torch.cuda.reset_peak_memory_stats()
+    ts, launches = count_launches(run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"fwd": n_steps, "bwd": n_steps, "conv3x3": K3_SITES * n_steps,
+            "conv3x3_hopper": K3_SITES * n_steps, "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"anim_refine: launches {launches} != {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"anim_refine: non-finite loss {losses}")
+    m_xyz = float(ts.opt.m["xyz"][:PTS_NUM].abs().max())
+    if not m_xyz > 0:
+        raise AssertionError("anim_refine: no Adam moment on canonical xyz")
+    step_ms = np.diff(stamps) * 1e3
+    med = float(np.median(step_ms[AR_WARMUP:]))
+    # the deformation's layers at the step's shapes: the k-NN search, and
+    # the blended transforms with it (forward, no autograd)
+    xyz = ts.gaussians.xyz
+    with torch.no_grad():
+        knn_ms = cuda_ms(lambda: knn_dist2(xyz, a_verts, k=6), 5, 1)
+        T_a2pose = a2pose_transforms(params, deformer.inv_T_t2a,
+                                     deformer.canonical_offsets)
+        lbs_ms = cuda_ms(lambda: lbs_diffuse_transforms(
+            params.lbs_weights, T_a2pose, xyz, a_verts), 5, 1)
+    log("anim_refine", points=PTS_NUM, capacity=CAPACITY, views=BATCH,
+        res=RES, k=6, steps=n_steps, median_ms_per_step=round(med, 3),
+        step_ms=[round(float(x), 3) for x in step_ms],
+        knn_ms=round(knn_ms, 3), lbs_transforms_ms=round(lbs_ms, 3),
+        peak_gib=round(peak, 3), losses=[round(x, 6) for x in losses],
+        xyz_adam_m_max=m_xyz, launches=launches)
+    state = [ts]
+
+    def one_step():
+        state[0], _ = step(state[0], gen)
+
+    profile_window(one_step, 2, "profile_anim_refine")
+    return launches, med
+
+
 def npz_shapes(path) -> dict:
     """name -> (shape, dtype) of each array in an .npz, from the headers
     (the arrays are not read)."""
@@ -1301,6 +1607,20 @@ class StepClock:
 
 
 @contextlib.contextmanager
+def patched(*targets):
+    """For one block, replaces each (owner, name, make) attribute by
+    make(original)."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    try:
+        for owner, name, make in targets:
+            setattr(owner, name, make(getattr(owner, name)))
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
 def watch_calls(*targets):
     """For one block, wraps each (module, name) that the command line looks
     up at call time: yields {name: [(seconds, result if a bool else None),
@@ -1308,25 +1628,21 @@ def watch_calls(*targets):
     import torch
 
     calls = {name: [] for _, name in targets}
-    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
-    def wrap(fn, name):
-        def timed(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            calls[name].append((time.perf_counter() - t0,
-                                out if isinstance(out, bool) else None))
-            return out
-        return timed
+    def timer(name):
+        def wrap(fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                calls[name].append((time.perf_counter() - t0,
+                                    out if isinstance(out, bool) else None))
+                return out
+            return timed
+        return wrap
 
-    try:
-        for mod, name, fn in saved:
-            setattr(mod, name, wrap(fn, name))
+    with patched(*((mod, name, timer(name)) for mod, name in targets)):
         yield calls
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 # stage 3 in a child process: the launch module run as `python -m` runs it
@@ -2045,6 +2361,8 @@ def kernel_bound(info, kind_, ops="ops"):
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2196,9 +2514,22 @@ def main() -> int:
     ts3, launches_3, _ = stage3_phase(g2, orbit, targets, gen)
     launches_t = turntable_phase(ts3.gaussians)
 
-    # 8. the command line: stages 1 -> 2 -> 3 as a user runs them
+    # 8. animation of the final avatar: the command line at 1024^2, K1/K2
+    # against their plain versions on its last re-posed frame, the bind at
+    # the SMPL-X sizes, and the animation-space refine steps on the
+    # SD1.5-width guidance
+    with tempfile.TemporaryDirectory() as tmp:
+        anim = animation_phase(ts3.gaussians, tmp)
+        animator, launches_a = anim["animator"], anim["launches"]
+        info_a = check_kernels(animator.gaussians, animator.orbit_camera(
+            anim["azimuth"], height=HIRES, width=HIRES), rcfg3, gen,
+            "animation", timing=True)
+        bind_full_phase(anim["ply"], anim["motion"])
+    launches_ar, _ = anim_refine_phase(guidance, anim["motion"], gen)
+
+    # 9. the command line: stages 1 -> 2 -> 3 as a user runs them
     del guidance, models, run, lat, ctx, ctrl, contexts, images, poses, \
-        targets, ts3, g2
+        targets, ts3, g2, anim, animator
     torch.cuda.empty_cache()
     cli = cli_phase()
     launches_cli = cli["launches"]
@@ -2206,15 +2537,16 @@ def main() -> int:
     real = cli_real_phase()
     launches_real = real["launches"]
 
-    # 9. kernels line: K1/K2 timed at the stub-guided path's shapes and at
-    # stage 3's, launches on the guided path and per path
-    # (launches_by_path; "cli": per stage of the command line); K3 summed
-    # over the guided step's 67 launches and over a refine denoise call's
-    # 67; "cli": each kernel against its plain version at the command
-    # line's shapes
+    # 10. kernels line: K1/K2 timed at the stub-guided path's shapes and at
+    # stage 3's (K1 also at an animation frame's), launches on the guided
+    # path and per path (launches_by_path; "cli": per stage of the command
+    # line); K3 summed over the guided step's 67 launches and over a refine
+    # denoise call's 67; "cli": each kernel against its plain version at
+    # the command line's shapes
     by_path = {"stage1_stub": launches, "stage1_guided": launches_g,
                "handoff": launches_h, "stage2_refine": launches_r,
-               "stage3": launches_3, "turntable": launches_t}
+               "stage3": launches_3, "turntable": launches_t,
+               "animation": launches_a, "anim_refine": launches_ar}
     cli_launches = lambda k: {stage: v[k]
                               for stage, v in launches_cli.items()}
     real_launches = lambda k: {stage: v[k]
@@ -2243,8 +2575,15 @@ def main() -> int:
                 "max_abs_err": info3[err], "ms": info3[f"{kind_}_ms"],
                 "plain_ms": info3[f"{kind_}_plain_ms"], "bound_ms": b3_ms,
                 "bound_by": b3_by, "library_ms": None},
+
             "cli": {tag: {"shape": c["shape"], "max_abs_err": c[err]}
                     for tag, c in cli["kernels"].items()}})
+    ba_ms, ba_by = kernel_bound(info_a, "fwd")
+    kernels[0]["animation"] = {
+        "shape": f"1 x {HIRES}^2, d_max {S3_D_MAX}",
+        "max_abs_err": info_a["fwd_err"], "ms": info_a["fwd_ms"],
+        "plain_ms": info_a["fwd_plain_ms"], "bound_ms": ba_ms,
+        "bound_by": ba_by, "library_ms": None}
     kernels.append({
         "name": "K3 conv3x3", "route": "cuda",
         "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",

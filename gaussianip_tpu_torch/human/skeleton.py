@@ -118,18 +118,21 @@ class Skeleton:
     def sample_smplx_points(self, N=20000, seed=0):
         """Area-weighted surface sampling (numpy rng, as the JAX package)."""
         assert self.vertices is not None, "call forward_smplx first"
-        rng = np.random.default_rng(seed)
-        v = self.vertices
-        f = self.faces
-        e1 = v[f[:, 1]] - v[f[:, 0]]
-        e2 = v[f[:, 2]] - v[f[:, 0]]
-        area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
-        p = area / area.sum()
-        fi = rng.choice(len(f), size=N, p=p)
-        r1 = np.sqrt(rng.uniform(size=(N, 1)))
-        r2 = rng.uniform(size=(N, 1))
-        a = 1 - r1
-        b = r1 * (1 - r2)
-        c = r1 * r2
-        pts = a * v[f[fi, 0]] + b * v[f[fi, 1]] + c * v[f[fi, 2]]
-        return pts.astype(np.float32)
+        return sample_surface_points(self.vertices, self.faces, N, seed)
+
+
+def sample_surface_points(v, f, N: int, seed: int) -> np.ndarray:
+    """N area-weighted points on the mesh (v [V, 3], f [F, 3]), float32."""
+    rng = np.random.default_rng(seed)
+    e1 = v[f[:, 1]] - v[f[:, 0]]
+    e2 = v[f[:, 2]] - v[f[:, 0]]
+    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+    p = area / area.sum()
+    fi = rng.choice(len(f), size=N, p=p)
+    r1 = np.sqrt(rng.uniform(size=(N, 1)))
+    r2 = rng.uniform(size=(N, 1))
+    a = 1 - r1
+    b = r1 * (1 - r2)
+    c = r1 * r2
+    pts = a * v[f[fi, 0]] + b * v[f[fi, 1]] + c * v[f[fi, 2]]
+    return pts.astype(np.float32)

@@ -85,6 +85,20 @@ def empty_state(capacity: int, max_sh_degree: int = 0,
                          active_sh_degree=0)
 
 
+def pad_to_capacity(state: GaussianState, arrays: dict,
+                    n: int) -> GaussianState:
+    """Write n rows of per-field arrays (numpy or tensors) into the front
+    of a fresh padded state; the other rows keep `state`'s values."""
+    if n > state.capacity:
+        raise ValueError(f"{n} points exceed capacity {state.capacity}")
+    upd = {}
+    for name, arr in arrays.items():
+        base = getattr(state, name).clone()
+        base[:n] = torch.as_tensor(arr, dtype=base.dtype, device=base.device)
+        upd[name] = base
+    return state.replace(n_active=n, **upd)
+
+
 def create_from_pcd(points, colors, capacity: int, mean_dist2,
                     max_sh_degree: int = 0, device="cuda") -> GaussianState:
     """Initialize from a point cloud: isotropic scale log(sqrt(mean 3-NN
