@@ -32,7 +32,15 @@ frame), K1/K2 against their plain versions on its last re-posed frame,
 the closest-point bind at the SMPL-X sizes (10,475 vertices, 20,908
 faces) against a dense evaluation, and animation-space refine steps (LBS
 deformation of 100000 canonical points, capacity 524288, 4 views at
-512^2) on the SD1.5-width guidance. Last, the port's command line
+512^2) on the SD1.5-width guidance. Then the side systems on the final
+avatar: photo reconstruction (system/photo_recon.py) of a NeRF-synthetic-
+layout scene of it (100 train and 20 test frames at 512^2, written by the
+port) with PhotoReconConfig()'s defaults cut to 1,001 iterations and 5
+steps at SH degree 3, the test views' PSNR / SSIM / LPIPS before and after
+(up by 3 dB at least), K1/K2 against their plain versions on the trained
+state at 1 x 512^2; `launch --export` of its .ply to a textured
+OBJ/MTL/PNG at configs/exp.yaml's exporter settings; and the live viewer
+on port 0, its PNG equal to the port's render. Last, the port's command line
 (gaussianip_tpu_torch/launch.py) with --stub-guidance at the recipe's
 sizes: stage 1 with validation, a checkpoint, a densify and a prune, its
 --resume, stage 2, and stage 3 in a child process that runs the launch
@@ -165,6 +173,34 @@ BIND_TOL = 1e-5
 # SD1.5-width random guidance; AR_WARMUP + AR_STEPS steps
 AR_WARMUP = 2
 AR_STEPS = 4
+# the side systems on the final avatar. Photo reconstruction
+# (system/photo_recon.py) of a NeRF-synthetic-layout scene of it: the lego
+# scene's train-split size and field of view (PR_TRAIN_VIEWS frames on the
+# upper hemisphere, PR_TEST_VIEWS at elevation 30 degrees, radius
+# PR_RADIUS, fovx PR_FOVX), rendered by the port at PhotoReconConfig()'s
+# 512^2 (no resample on load); PhotoReconConfig()'s defaults cut to
+# PR_ITERS of its 7000 iterations (the six densifies at 500..1000 and the
+# SH raise at 1000), then PR_SH_STEPS steps at SH degree 3 and one opacity
+# reset; the test views' PSNR must rise by PR_MIN_GAIN_DB. The export runs
+# configs/exp.yaml's system.exporter (128^3, threshold 1.0, 1024^2
+# texture, obj-mtl); the viewer answers VIEWER_REQUESTS requests of
+# /render?size=512
+PR_TRAIN_VIEWS = 100
+PR_TEST_VIEWS = 20
+PR_RADIUS = 4.0
+PR_FOVX = 0.6911
+PR_ITERS = 1001
+PR_SH_STEPS = 5
+PR_WARMUP = 5
+PR_MIN_GAIN_DB = 3.0
+VIEWER_SIZE = 512
+VIEWER_REQUESTS = 3
+# how far past the bounding box of the avatar's centres an exported vertex
+# may lie, in grid cells (the splat's patch reaches 4 cells past a centre,
+# so a lump of large opaque splats can pass one cell: the CPU rehearsal's
+# untrained test body at opacity 0.95 reached 3.6; the trained avatar stays
+# inside)
+EXPORT_PAD_CELLS = 1.0
 # the port's command line (gaussianip_tpu_torch/launch.py) on configs/
 # exp.yaml with --stub-guidance at the recipe's sizes: stage 1 for
 # CLI_STEPS steps with validation and a checkpoint after step index 10, a
@@ -1556,6 +1592,316 @@ def anim_refine_phase(guidance, motion, gen, dev="cuda"):
     return launches, med
 
 
+def blender_cameras(split: str, dev="cuda"):
+    """(c2w [V, 4, 4] look-at matrices, fovy [V]) of the photo scene's
+    split: train on the upper hemisphere (seeded), test on a circle at
+    elevation 30 degrees; all at PR_RADIUS looking at the origin, z up."""
+    import torch
+    from gaussianip_tpu_torch.ops.camera_math import look_at_c2w
+
+    if split == "train":
+        d = np.random.default_rng(SEED).normal(size=(PR_TRAIN_VIEWS, 3))
+        d[:, 2] = np.abs(d[:, 2])
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    else:
+        el = np.deg2rad(30.0)
+        az = np.linspace(0, 2 * np.pi, PR_TEST_VIEWS, endpoint=False)
+        d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                      np.full_like(az, np.sin(el))], -1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    v = d.shape[0]
+    c2w = look_at_c2w(torch.as_tensor(d * PR_RADIUS, **f32),
+                      torch.zeros((v, 3), **f32),
+                      torch.tensor([[0.0, 0, 1]], **f32).expand(v, 3))
+    return c2w, torch.full((v,), PR_FOVX, **f32)
+
+
+def write_blender_scene(gs, root: str, res: int, dev="cuda"):
+    """A NeRF-synthetic-layout scene of `gs` in `root`:
+    transforms_{train,test}.json (camera_angle_x, a transform_matrix per
+    frame) and {split}/r_{i}.png frames rendered by the port at res^2 on a
+    black background (RenderConfig(), sweeps of 4). Both packages' Blender
+    reader flips the y and z columns of every matrix, as if the renderer
+    took COLMAP's convention; the renderer takes the look-at (OpenGL)
+    one. So the file holds the look-at matrices with y and z flipped, which
+    the reader turns back into the cameras the frames were rendered from.
+    Returns the seconds of the renders and of the PNG writes."""
+    import torch
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.render.render import RenderConfig, render
+    from gaussianip_tpu_torch.utils.saving import save_image
+
+    t_render = t_write = 0.0
+    for split in ("train", "test"):
+        c2w, fovy = blender_cameras(split, dev)
+        frames = []
+        for s in range(0, c2w.shape[0], 4):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                rgb = render(gs, camera_from_c2w(c2w[s:s + 4], fovy[s:s + 4],
+                                                 res, res),
+                             torch.zeros(3, device=dev), RenderConfig()).rgb
+            rgb = rgb.cpu().numpy()
+            t1 = time.perf_counter()
+            for j, img in enumerate(rgb):
+                name = f"{split}/r_{s + j}"
+                save_image(os.path.join(root, name + ".png"), img)
+                m = c2w[s + j].cpu().numpy().astype(np.float64)
+                m[:3, 1:3] *= -1
+                frames.append({"file_path": "./" + name,
+                               "transform_matrix": m.tolist()})
+            t_render += t1 - t0
+            t_write += time.perf_counter() - t1
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": PR_FOVX, "frames": frames}, f)
+    return t_render, t_write
+
+
+def photo_recon_phase(gs, tmp: str, gen, dev="cuda"):
+    """Photo reconstruction of the avatar's Blender-layout scene, as a user
+    runs it: load_scene, the images, train_photo_recon with
+    PhotoReconConfig()'s defaults cut to PR_ITERS iterations, PR_SH_STEPS
+    steps of make_recon_step at SH degree 3, evaluate on the test views
+    before and after (PSNR, SSIM, LPIPS with build_random_lpips(seed=42)),
+    reset_opacity once. The median step after PR_WARMUP, n_active, the
+    first and last loss, the wall seconds; K1 once a step and an evaluated
+    view, K2 once a step; the PSNR up by PR_MIN_GAIN_DB and the loss down.
+    Returns a dict with the launches, the trained state and one test
+    camera."""
+    import dataclasses
+
+    import torch
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.data.scene_readers import (load_blender_scene,
+                                                         load_scene)
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.densify import reset_opacity
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system import photo_recon as pr
+    from gaussianip_tpu_torch.system.pipeline import build_random_lpips
+
+    root = os.path.join(tmp, "photo_scene")
+    cfg = dataclasses.replace(pr.PhotoReconConfig(), iterations=PR_ITERS)
+    t_render, t_write = write_blender_scene(gs, root, cfg.resolution, dev)
+    lpips = build_random_lpips(seed=42, device=dev)
+    stamps, losses = [], []
+
+    def log_fn(i, m):  # log_every=1: the metrics are host floats
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    def run():
+        t0 = time.perf_counter()
+        scene = load_scene(root)
+        test = load_blender_scene(root, split="test")
+        images = pr._load_images(scene, cfg.resolution)
+        test_images = pr._load_images(test, cfg.resolution)
+        out = {"load_s": time.perf_counter() - t0}
+        init = pr.init_from_scene(scene, cfg, SEED, dev)
+        out["n_init"] = init.gaussians.n_active
+        out["before"] = pr.evaluate(init, test, cfg, images=test_images,
+                                    lpips_fn=lpips)
+        del init
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ts = pr.train_photo_recon(scene, cfg, seed=SEED, images=images,
+                                  log_every=1, log_fn=log_fn, device=dev)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["n_trained"] = ts.gaussians.n_active
+        c2ws, fovys = pr.scene_tensors(scene, dev)
+        step = pr.make_recon_step(
+            cfg, RenderConfig(),
+            AdamHyper(spatial_lr_scale=scene.nerf_normalization_radius),
+            c2ws, fovys, torch.as_tensor(images, device=dev), cfg.sh_degree)
+        sh_losses = []
+        for _ in range(PR_SH_STEPS):
+            ts, m = step(ts, gen)
+            sh_losses.append(float(m["loss"]))
+        out["sh_losses"] = sh_losses
+        out["after"] = pr.evaluate(ts, test, cfg, images=test_images,
+                                   lpips_fn=lpips)
+        g, opt = reset_opacity(ts.gaussians, ts.opt)
+        out["reset_max_opacity"] = float(
+            g.get_opacity()[:g.n_active].max())
+        out["reset_moments"] = float(opt.m["opacity"].abs().max()
+                                     + opt.v["opacity"].abs().max())
+        out["state"], out["test"], out["step"] = ts, test, step
+        return out
+
+    out, launches = count_launches(run)
+    n_eval = 2 * PR_TEST_VIEWS
+    n_steps = PR_ITERS + PR_SH_STEPS
+    want = {"fwd": n_steps + n_eval, "bwd": n_steps, "conv3x3": 0,
+            "conv3x3_hopper": 0, "conv3x3_general": 0}
+    if launches != want:
+        raise AssertionError(f"photo_recon: launches {launches} != {want}")
+    before, after = out["before"], out["after"]
+    gain = after["psnr"] - before["psnr"]
+    step_ms = np.diff(stamps) * 1e3
+    log("photo_recon", train_views=PR_TRAIN_VIEWS, test_views=PR_TEST_VIEWS,
+        res=cfg.resolution, iterations=PR_ITERS, sh_steps=PR_SH_STEPS,
+        scene_render_s=round(t_render, 3), scene_write_s=round(t_write, 3),
+        load_s=round(out["load_s"], 3), train_wall_s=round(out["train_s"], 3),
+        median_step_ms=round(float(np.median(step_ms[PR_WARMUP:])), 3),
+        p90_step_ms=round(float(np.quantile(step_ms[PR_WARMUP:], 0.9)), 3),
+        n_active_before=out["n_init"], n_active_after=out["n_trained"],
+        loss_first=round(losses[0], 6), loss_last=round(losses[-1], 6),
+        sh3_losses=[round(x, 6) for x in out["sh_losses"]],
+        peak_gib=round(out["peak_gib"], 3), eval_before=before,
+        eval_after=after, psnr_gain_db=round(gain, 3),
+        reset_max_opacity=out["reset_max_opacity"], launches=launches)
+    if not (gain >= PR_MIN_GAIN_DB and losses[-1] < losses[0]
+            and np.all(np.isfinite(losses + out["sh_losses"]))):
+        raise AssertionError(f"photo_recon: PSNR {before['psnr']} -> "
+                             f"{after['psnr']} (need +{PR_MIN_GAIN_DB}), "
+                             f"loss {losses[0]} -> {losses[-1]}")
+    if not (out["reset_max_opacity"] <= 0.01 + 1e-6
+            and out["reset_moments"] == 0.0):
+        raise AssertionError(f"photo_recon: reset_opacity left opacity "
+                             f"{out['reset_max_opacity']}, moments "
+                             f"{out['reset_moments']}")
+    ts, step = out["state"], out["step"]
+    state = [ts]
+
+    def one_step():  # at SH degree 3
+        state[0], _ = step(state[0], gen)
+
+    profile_window(one_step, 3, "profile_photo_recon")
+    c2w, fovy = pr.scene_tensors(out["test"], dev)
+    return {"launches": launches,
+            "gaussians": ts.gaussians.replace(active_sh_degree=cfg.sh_degree),
+            "cams": camera_from_c2w(c2w[:1], fovy[:1], cfg.resolution,
+                                    cfg.resolution)}
+
+
+def export_phase(gs, tmp: str, dev="cuda"):
+    """`python -m gaussianip_tpu_torch.launch --config configs/exp.yaml
+    --export --resume_from <the avatar's .ply>` in-process at the
+    exporter's settings: the seconds of the density splat, marching
+    tetrahedra, the colour splat and the bake, the peak memory, the vertex
+    and face counts, the file sizes. Requires a non-empty mesh, every
+    vertex inside the bounding box of the avatar's centres padded by
+    EXPORT_PAD_CELLS grid cells, and no kernel launch; prints how far past
+    the unpadded box the mesh reaches, in cells. Returns the launches."""
+    import torch
+    from gaussianip_tpu_torch import launch
+    from gaussianip_tpu_torch.model.ply import state_to_ply
+    from gaussianip_tpu_torch.ops import mesh_export, mesh_extract
+    from gaussianip_tpu_torch.utils.config import load_config
+
+    ply = os.path.join(tmp, "avatar_export.ply")
+    state_to_ply(gs, ply)
+    log_path = os.path.join(tmp, "export_logs")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "exp.yaml")
+    ecfg = load_config(config)["system"]["exporter"]
+    argv = ["--config", config, "--cur_time", "export", "--export",
+            "--resume_from", ply, f"system.log_path={log_path}",
+            "--device", dev]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with watch_calls((mesh_extract, "extract_density_grid"),
+                     (mesh_extract, "marching_tetrahedra"),
+                     (mesh_export, "splat_color_grid"),
+                     (mesh_export, "bake_texture")) as calls:
+        _, launches = count_launches(lambda: launch.main(argv))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with open(os.path.join(log_path, "export", "run.json")) as f:
+        paths = json.load(f)["export"]
+    verts, n_faces = [], 0
+    with open(paths["obj"]) as f:
+        for ln in f:
+            if ln.startswith("v "):
+                verts.append([float(x) for x in ln.split()[1:]])
+            elif ln.startswith("f "):
+                n_faces += 1
+    verts = np.asarray(verts)
+    n = gs.n_active
+    xyz = gs.xyz[:n].cpu().numpy()
+    lo, hi = xyz.min(0), xyz.max(0)
+    cell = (2.0 / (int(ecfg["resolution"]) - 1)) / (1.8 / (hi - lo).max())
+    past = (float(np.maximum(lo - verts, verts - hi).max()) / cell
+            if len(verts) else float("nan"))
+    inside = bool(past <= EXPORT_PAD_CELLS)
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    secs = {k: round(sum(s for s, _ in v), 4) for k, v in calls.items()}
+    zero = {k: 0 for k in launches}
+    log("export", resolution=ecfg["resolution"],
+        density_thresh=ecfg["density_thresh"],
+        texture_size=ecfg["texture_size"], fmt=ecfg["fmt"], gaussians=n,
+        wall_s=round(wall, 3), seconds=secs,
+        peak_above_start_gib=round(peak, 3), vertices=len(verts),
+        faces=n_faces, bytes=sizes, cells_past_bbox=round(past, 3),
+        inside_padded_bbox=inside,
+        texture=os.path.basename(paths["texture"]), launches=launches)
+    if not (inside and n_faces > 0 and set(paths) == {"obj", "mtl",
+                                                      "texture"}
+            and paths["texture"].endswith(".png") and launches == zero):
+        raise AssertionError(f"export: {len(verts)} vertices, {n_faces} "
+                             f"faces, inside {inside}, paths {paths}, "
+                             f"launches {launches}")
+    return launches
+
+
+def viewer_phase(gs, dev="cuda"):
+    """start_viewer(state, port=0) on the avatar: GET / and
+    VIEWER_REQUESTS x /render?size=VIEWER_SIZE (the default orbit camera);
+    the decoded PNG equals the port's render of the same camera as uint8,
+    pixel for pixel; K1 once a request, K2 never. Returns the launches."""
+    import urllib.request
+
+    import torch
+    from gaussianip_tpu_torch.render.render import RenderConfig, render
+    from gaussianip_tpu_torch.utils.saving import decode_png
+    from gaussianip_tpu_torch.utils.viewer import (ViewerState, orbit_camera,
+                                                   start_viewer)
+
+    state = ViewerState()
+    state.update(gs)
+    server = start_viewer(state, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        page = urllib.request.urlopen(url + "/", timeout=60).read()
+        pngs, ms = [], []
+
+        def requests():
+            for _ in range(VIEWER_REQUESTS):
+                t0 = time.perf_counter()
+                pngs.append(urllib.request.urlopen(
+                    f"{url}/render?size={VIEWER_SIZE}", timeout=120).read())
+                ms.append((time.perf_counter() - t0) * 1e3)
+
+        _, launches = count_launches(requests)
+    finally:
+        server.shutdown()
+        server.server_close()
+    img = decode_png(pngs[-1])
+    with torch.no_grad():
+        want = render(gs, orbit_camera(0, 5, 1.8, VIEWER_SIZE, dev),
+                      torch.zeros(3, device=dev), RenderConfig()).rgb[0]
+    want = (want.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    equal = bool(np.array_equal(img, want))
+    same = all(p == pngs[0] for p in pngs)
+    expect = {"fwd": VIEWER_REQUESTS, "bwd": 0, "conv3x3": 0,
+              "conv3x3_hopper": 0, "conv3x3_general": 0}
+    log("viewer", size=VIEWER_SIZE, requests=VIEWER_REQUESTS,
+        ms_per_request=[round(x, 3) for x in ms], png_bytes=len(pngs[-1]),
+        equal_to_render=equal, requests_identical=same,
+        lit_share=round(float((want.max(-1) > 0).mean()), 4),
+        page_ok=b"gaussianip-tpu viewer" in page, launches=launches)
+    if not (equal and same and b"gaussianip-tpu viewer" in page
+            and launches == expect):
+        raise AssertionError(f"viewer: equal {equal}, identical {same}, "
+                             f"launches {launches} != {expect}")
+    return launches
+
+
 def npz_shapes(path) -> dict:
     """name -> (shape, dtype) of each array in an .npz, from the headers
     (the arrays are not read)."""
@@ -2527,7 +2873,27 @@ def main() -> int:
         bind_full_phase(anim["ply"], anim["motion"])
     launches_ar, _ = anim_refine_phase(guidance, anim["motion"], gen)
 
-    # 9. the command line: stages 1 -> 2 -> 3 as a user runs them
+    # 9. the side systems on the final avatar: photo reconstruction of a
+    # Blender-layout scene of it with K1/K2 against their plain versions on
+    # the trained state (1 x 512^2), --export to a textured mesh, the viewer
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recon = photo_recon_phase(ts3.gaussians, tmp, gen)
+        t_pr = time.perf_counter() - t0
+        info_p = check_kernels(recon["gaussians"], recon["cams"],
+                               RenderConfig(), gen, "photo_recon",
+                               timing=True)
+        t0 = time.perf_counter()
+        launches_x = export_phase(ts3.gaussians, tmp)
+        t_x = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches_v = viewer_phase(ts3.gaussians)
+    log("side_systems", photo_recon_s=round(t_pr, 2), export_s=round(t_x, 2),
+        viewer_s=round(time.perf_counter() - t0, 2))
+    launches_p = recon["launches"]
+    del recon
+
+    # 10. the command line: stages 1 -> 2 -> 3 as a user runs them
     del guidance, models, run, lat, ctx, ctrl, contexts, images, poses, \
         targets, ts3, g2, anim, animator
     torch.cuda.empty_cache()
@@ -2537,8 +2903,9 @@ def main() -> int:
     real = cli_real_phase()
     launches_real = real["launches"]
 
-    # 10. kernels line: K1/K2 timed at the stub-guided path's shapes and at
-    # stage 3's (K1 also at an animation frame's), launches on the guided
+    # 11. kernels line: K1/K2 timed at the stub-guided path's shapes, at
+    # stage 3's and at photo reconstruction's (K1 also at an animation
+    # frame's), launches on the guided
     # path and per path (launches_by_path; "cli": per stage of the command
     # line); K3 summed over the guided step's 67 launches and over a refine
     # denoise call's 67; "cli": each kernel against its plain version at
@@ -2546,7 +2913,9 @@ def main() -> int:
     by_path = {"stage1_stub": launches, "stage1_guided": launches_g,
                "handoff": launches_h, "stage2_refine": launches_r,
                "stage3": launches_3, "turntable": launches_t,
-               "animation": launches_a, "anim_refine": launches_ar}
+               "animation": launches_a, "anim_refine": launches_ar,
+               "photo_recon": launches_p, "export": launches_x,
+               "viewer": launches_v}
     cli_launches = lambda k: {stage: v[k]
                               for stage, v in launches_cli.items()}
     real_launches = lambda k: {stage: v[k]
@@ -2560,6 +2929,7 @@ def main() -> int:
              "gaussianip_tpu/render/composite_pallas.py:246", "bwd_err")):
         b_ms, b_by = kernel_bound(info, kind_)
         b3_ms, b3_by = kernel_bound(info3, kind_)
+        bp_ms, bp_by = kernel_bound(info_p, kind_)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches_g[kind_], "launches_by_path": {
@@ -2575,7 +2945,12 @@ def main() -> int:
                 "max_abs_err": info3[err], "ms": info3[f"{kind_}_ms"],
                 "plain_ms": info3[f"{kind_}_plain_ms"], "bound_ms": b3_ms,
                 "bound_by": b3_by, "library_ms": None},
-
+            "photo_recon": {
+                "shape": "1 x 512^2, d_max 25, SH degree 3",
+                "pairs": info_p["pairs"], "max_abs_err": info_p[err],
+                "ms": info_p[f"{kind_}_ms"],
+                "plain_ms": info_p[f"{kind_}_plain_ms"], "bound_ms": bp_ms,
+                "bound_by": bp_by, "library_ms": None},
             "cli": {tag: {"shape": c["shape"], "max_abs_err": c[err]}
                     for tag, c in cli["kernels"].items()}})
     ba_ms, ba_by = kernel_bound(info_a, "fwd")

@@ -24,9 +24,14 @@ warned fallback) and, in stage 3, LPIPS from `system.lpips_vgg_path` /
 `system.lpips_lin_path` (absent: a loud warning and L1 alone). A missing
 SMPL-X model falls back to the synthetic body with a warning.
 `--stub-guidance` runs the tiny random stack and the synthetic body
-instead. Refused with an error naming what is missing: `--export` (the
-mesh modules: ROADMAP.md Queue 1 item 4) and `--devices N` with N > 1
-(data parallel: item 5).
+instead.
+
+`--export` turns the trained .ply (`--resume_from`, else the manifest's
+final_ply, else save/last.ply) into a textured OBJ/MTL/PNG under
+export/, with `system.exporter`'s settings (ops/mesh_export.py), and
+records the paths in the manifest. Refused with an error naming what is
+missing: `--devices N` with N > 1 (data parallel: ROADMAP.md Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -44,10 +49,6 @@ import gaussianip_tpu_torch as gt
 def _check_args(args):
     """Refuse what the port cannot run yet, and the card when it is
     missing; nothing falls back quietly."""
-    if getattr(args, "export", False):
-        raise NotImplementedError(
-            "--export needs the mesh modules (ops/mesh_extract.py, "
-            "ops/mesh_export.py), not ported yet: ROADMAP.md Queue 1 item 4")
     devices = str(getattr(args, "devices", "auto"))
     if devices != "auto" and int(devices) > 1:
         raise NotImplementedError(
@@ -444,6 +445,34 @@ def run_stage3(cfg, dirs, args):
     gt.info(f"stage 3 done in {time.time() - t0:.0f}s -> {final_ply}")
 
 
+def run_export(cfg, dirs, args):
+    """--export: the trained .ply -> a textured OBJ/MTL mesh (or a plain
+    OBJ with system.exporter.fmt=obj). Returns the written paths."""
+    from .model.ply import state_from_ply
+    from .ops.mesh_export import export_avatar_mesh
+
+    _check_args(args)
+    ecfg = cfg["system"].get("exporter", {}) or {}
+    ply = args.resume_from or dirs.manifest_get("final_ply") \
+        or dirs.path("save", "last.ply")
+    if not os.path.exists(ply):
+        raise FileNotFoundError(
+            f"--export needs a trained .ply; none at {ply} "
+            "(pass --resume_from <path/to/.ply> or run stage 3 first)")
+    state = state_from_ply(ply, device=getattr(args, "device", "cuda"))
+    out_prefix = dirs.path("export", str(ecfg.get("save_name", "model")))
+    paths = export_avatar_mesh(
+        state, out_prefix,
+        resolution=int(ecfg.get("resolution", 128)),
+        density_thresh=float(ecfg.get("density_thresh", 1.0)),
+        texture_size=int(ecfg.get("texture_size", 1024)),
+        fmt=str(ecfg.get("fmt", "obj-mtl")),
+    )
+    dirs.manifest(export=paths)
+    gt.info(f"export done -> {paths['obj']}")
+    return paths
+
+
 def record_runtime(dirs, device: str):
     """Set the precision policy and record it, the device and the compute
     dtype in the run manifest."""
@@ -460,7 +489,7 @@ def parse_args(argv=None):
     parser.add_argument("--validate", action="store_true")
     parser.add_argument("--test", action="store_true")
     parser.add_argument("--export", action="store_true",
-                        help="not ported: raises")
+                        help="the trained .ply -> a textured OBJ/MTL mesh")
     parser.add_argument("--cur_time", required=True)
     parser.add_argument("--stage", default=None,
                         help="override system.stage (stage1|stage2|stage3)")
@@ -502,7 +531,9 @@ def main(argv=None):
 
     np.random.seed(int(cfg.get("seed", 42)))
 
-    if stage == "stage1":
+    if args.export:
+        run_export(cfg, dirs, args)
+    elif stage == "stage1":
         run_stage1(cfg, dirs, args)
     elif stage == "stage2":
         run_stage2(cfg, dirs, args)

@@ -5,6 +5,8 @@ Semantics as in the JAX package: clone small hot gaussians, split large hot
 ones into 2 children sampled N(mean, scale) rotated with scale/(0.8*2),
 prune by opacity and world size; survivors keep their Adam moments, clones
 and children start at zero; densify zeroes the stats, prune_only keeps them.
+reset_opacity caps the opacities (the photo-reconstruction trainer's
+periodic reset).
 Output order is [kept originals, clones, split children]. The split noise is
 an argument, so a caller (or a test) supplies the random draws.
 """
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.transforms import quat_to_rotmat
+from ..ops.transforms import inverse_sigmoid, quat_to_rotmat
 from .adam import AdamState
 from .gaussians import PARAM_FIELDS, GaussianState, fresh_param_buffers
 
@@ -158,3 +160,18 @@ def prune_only(state: GaussianState, opt: AdamState, stats: DensifyStats,
     return (state.replace(n_active=n_new, **new_params),
             AdamState(m=new_m, v=new_v, count=opt.count),
             DensifyStats(**new_stats))
+
+
+@torch.no_grad()
+def reset_opacity(state: GaussianState, opt: AdamState,
+                  ceiling: float = 0.01):
+    """Cap the active opacities at `ceiling` and zero the opacity field's
+    Adam moments. Returns (state, opt)."""
+    op = torch.clamp(state.get_opacity(), max=ceiling)
+    logit = inverse_sigmoid(torch.clamp(op, 1e-6, 1 - 1e-6))
+    logit = torch.where(state.active_mask()[:, None], logit, state.opacity)
+    m, v = dict(opt.m), dict(opt.v)
+    m["opacity"] = torch.zeros_like(opt.m["opacity"])
+    v["opacity"] = torch.zeros_like(opt.v["opacity"])
+    return (state.replace(opacity=logit),
+            AdamState(m=m, v=v, count=opt.count))

@@ -1,5 +1,5 @@
-"""Rotation and activation math for 3D Gaussian splats (port of
-gaussianip_tpu/ops/transforms.py)."""
+"""Rotation, covariance and activation math for 3D Gaussian splats (port
+of gaussianip_tpu/ops/transforms.py)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,26 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     r2 = torch.stack(
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)
     return torch.stack([r0, r1, r2], -2)
+
+
+def build_scaling_rotation(scales: torch.Tensor,
+                           quats: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): [..., 3, 3]."""
+    return quat_to_rotmat(quats) * scales[..., None, :]
+
+
+def build_covariance(scales: torch.Tensor, quats: torch.Tensor,
+                     scaling_modifier: float = 1.0) -> torch.Tensor:
+    """3D covariance Sigma = L L^T from activated scales + raw quats."""
+    L = build_scaling_rotation(scaling_modifier * scales, quats)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> packed [..., 6] upper triangle, row-major
+    (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], -1)
 
 
 def expon_lr(step: int, lr_init: float, lr_final: float,

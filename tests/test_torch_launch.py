@@ -299,7 +299,6 @@ def test_jax_run_continues_in_port(jax_run):
 
 
 @pytest.mark.parametrize("args,error", [
-    (["--device", "cpu", "--stub-guidance", "--export"], "Queue 1 item 4"),
     (["--device", "cpu", "--stub-guidance", "--devices", "2"],
      "Queue 1 item 5"),
     (["--stub-guidance"], "no CUDA device"),
@@ -313,6 +312,23 @@ def test_cli_refuses(tmp_path, monkeypatch, args, error):
         launch.main(["--config", CONFIG, "--cur_time", "x",
                      f"system.log_path={tmp_path}", *args])
     assert not os.path.exists(tmp_path / "x")
+
+
+def test_cli_export(run):
+    """`--export` on the run directory after stage 3: the manifest's
+    final_ply becomes export/model.{obj,mtl} and model_albedo.png, and the
+    manifest records the paths."""
+    root, man = run
+    log, run_id = os.path.dirname(root), os.path.basename(root)
+    m = _cli(log, run_id, "--export", "system.exporter.resolution=32",
+             "system.exporter.density_thresh=0.05",
+             "system.exporter.texture_size=64")
+    exp = m["export"]
+    assert exp == {k: os.path.join(root, "export", f"model{suffix}")
+                   for k, suffix in (("obj", ".obj"), ("mtl", ".mtl"),
+                                     ("texture", "_albedo.png"))}
+    assert all(os.path.getsize(p) > 0 for p in exp.values())
+    assert m["final_ply"] == man["stage3"]["final_ply"]
 
 
 def test_cli_without_stub_needs_checkpoints(tmp_path):
