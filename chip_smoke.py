@@ -53,10 +53,15 @@ directory (system/standin.py), every loaded tensor held against its
 source and the loaded stack's forward against the source stack's, the
 command line without --stub-guidance on that set (stage 1, stage 2 in
 full, stage 3 and the turntable, with each stage's launches, LPIPS loaded
-and the face-identity branch recorded) and eval_avatar. Prints one line
-per phase, a `kernels` JSON line, the card's name and power limit, and as
-its last line {"ok": true, "device": {...}}. Any failed phase exits
-non-zero; there is no CPU path.
+and the face-identity branch recorded) and eval_avatar. Last, data
+parallel (dp): two gloo ranks on the card through parallel.spawn, each
+part held against the single process run in rank 0 on the same inputs
+(guided stage-1 steps with a densify at 4 x 512^2, stage-3 steps at 4 x
+1024^2, the refine at 1024^2), the ranks' states checked equal and every
+kernel's launches counted per rank, then one stage-1 step in a
+world-size-1 NCCL group. Prints one line per phase, a `kernels` JSON line,
+the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}. Any failed phase exits non-zero; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -246,6 +251,55 @@ REAL_FWD_TOL = 1e-2
 # scripts/eval_avatar.py's EVAL.json keys with both LPIPS checkpoints
 EVAL_KEYS = {"n_views", "render_size", "psnr", "ssim", "l1", "ply",
              "lpips_vgg", "id_similarity", "id_similarity_backend"}
+# data parallel (phase dp, gaussianip_tpu_torch/parallel/mesh.py): DP_RANKS
+# gloo ranks on the one card through parallel.spawn, each rank's part
+# against the single process run in rank 0 on the same inputs: stage 1 on
+# the SD1.5-width random stack at 4 x 512^2 (2 views a rank), DP_STEPS
+# steps with the densify after step index DP_DENSIFY_AT; stage 3 at 4 x
+# 1024^2 with the random LPIPS, DP_S3_STEPS steps; refine_views on the 32
+# handoff views at 1024^2, DP_REFINE_STEPS denoise step (dense groups of
+# 8, split 4 + 4); then one stub-guided stage-1 step in a world-size-1
+# NCCL group. Tolerances, ranks against the single process:
+#  * guided stage 1: each step's loss to DP_LOSS_RTOL; Adam's m and the
+#    densify statistics after step 1, in relative L2 norm, within
+#    DP_GUIDED_FACTOR times the stack's own sensitivity to the batch it
+#    runs at (at least DP_GUIDED_MIN, f32 sums in another order), measured
+#    in the same run (`guidance_half_batch_l2`: the SDS gradient to the
+#    rendered views computed in two halves against the whole batch, no
+#    data parallel involved). The bf16 stack rounds in other places at
+#    half the batch, and the guidance scale of 7.5 on the difference of
+#    two noise predictions magnifies that (on an H100 80GB HBM3 at 700 W:
+#    ~5% in L2 for that sensitivity, 3-4% against the ranks, up to 6.2e-2
+#    of the largest |value| in one element), so the worst element is
+#    printed, not held; a fault of the group path (a local batch size or
+#    depth max) is O(1) or systematic;
+#    the count after the densify within DP_COUNT_RTOL (a gaussian at the
+#    2e-4 threshold may go either way);
+#  * stage 3 (f32; reassociated sums and K2's atomics): each loss to
+#    DP_S3_RTOL, m and the statistics after step 1 within BWD_REL_TOL;
+#  * the refine: worst |diff| on [0, 1] images within DP_REFINE_TOL and
+#    the mean within DP_REFINE_MEAN_TOL. The rank's VAE chunks and dense
+#    groups of 4 are the single process's, so the gathers aside (exact)
+#    the calls are the same; but two processes running the same refine at
+#    once on the card differ in a few views by up to ~0.05 with no data
+#    parallel involved (printed: single_across_processes_max_abs; on an
+#    H100 80GB HBM3 at 700 W up to 0.0513 there and 0.045-0.051 against
+#    the ranks, in 2-4 of the 32 views). A fault of the split (a view's
+#    rows or caches crossed) moves whole views: O(0.1) in the mean;
+#  * the NCCL step against the no-group step from one state and draws: the
+#    loss equal, m within BWD_REL_TOL (K2's atomics).
+DP_RANKS = 2
+DP_STEPS = 3
+DP_DENSIFY_AT = 1
+DP_S3_STEPS = 2
+DP_REFINE_STEPS = 1
+DP_LOSS_RTOL = 1e-2
+DP_GUIDED_FACTOR = 3.0
+DP_GUIDED_MIN = 1e-4
+DP_COUNT_RTOL = 1e-2
+DP_S3_RTOL = 1e-3
+DP_REFINE_TOL = 0.1
+DP_REFINE_MEAN_TOL = 2e-3
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
 # package's tiled compositor deviates from its dense oracle by 1.4e-3 on
@@ -2698,6 +2752,342 @@ def cli_real_phase():
     return {"launches": out, "loaders": info, "face_identity": face}
 
 
+def rel_err(a, b) -> float:
+    """Worst |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| over ||b||."""
+    return float((a - b).double().norm()
+                 / b.double().norm().clamp(min=1e-30))
+
+
+def dp_compare(tag, got, ref, tol: float, err=rel_err) -> dict:
+    """Adam's m of each field (rotation's, rounding noise on isotropic
+    gaussians, aside) and the densify statistics of two train states:
+    err(got, ref) (default: worst |diff| over the field's largest |value|)
+    each within tol."""
+    fields = {f"m.{f}": (got.opt.m[f], ref.opt.m[f])
+              for f in ("xyz", "f_dc", "opacity", "scaling")}
+    fields.update({f: (getattr(got.stats, f), getattr(ref.stats, f))
+                   for f in ("xyz_grad_accum", "denom", "max_radii2d")})
+    errs = {k: err(a, b) for k, (a, b) in fields.items()}
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{tag}: against the single process {bad} > "
+                             f"{tol}")
+    return errs
+
+
+def dp_losses(tag, got: list, ref: list, rtol: float) -> float:
+    """Each step's loss against the single process's, within rtol."""
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    if not err <= rtol:
+        raise AssertionError(f"{tag}: losses {got} against the single "
+                             f"process's {ref}: {err} > {rtol}")
+    return err
+
+
+def guidance_half_batch_l2(guidance, gen, dev) -> float:
+    """The guidance stack's sensitivity to its batch: the SDS gradient to
+    BATCH random views (the step's loss over the whole batch, 512^2)
+    computed as two half batches against one whole batch, relative L2."""
+    import torch
+
+    shape = (BATCH, RES, RES, 3)
+    rgb = torch.rand(shape, generator=gen, device=dev)
+    control = torch.rand(shape, generator=gen, device=dev)
+    aux = view_aux(BATCH, dev)
+    draws = guidance.sample_noise(gen, shape, dev)
+
+    def grad(rows):
+        x = rgb[rows].clone().requires_grad_(True)
+        loss = guidance(0, {k: v[rows] for k, v in draws.items()}, x,
+                        control[rows], {**{k: v[rows] for k, v in
+                                           aux.items()},
+                                        "batch_size": BATCH})["loss_sds"]
+        return torch.autograd.grad(loss, x)[0]
+
+    half = BATCH // 2
+    whole = grad(slice(0, BATCH))
+    return rel_l2(torch.cat([grad(slice(0, half)),
+                             grad(slice(half, BATCH))]), whole)
+
+
+def dp_rank(group, scene_path: str, points3d):
+    """One rank of phase dp (see DP_RANKS). Each part runs first in rank 0
+    alone without a group (the single process), then on every rank with
+    the group, its kernel launches counted from 0; rank 0 holds the two
+    against each other and every rank checks that the ranks' states are
+    bit-equal. Returns the rank's launches by part and its step times."""
+    import torch
+    import torch.distributed as dist
+    from gaussianip_tpu_torch.data.cameras import camera_from_c2w
+    from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
+                                                   refine_orbit_batch,
+                                                   sample_train_batch)
+    from gaussianip_tpu_torch.guidance.stub import make_stub_guidance
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.model.gaussians import GaussianState
+    from gaussianip_tpu_torch.parallel.mesh import (DataGroup, all_max,
+                                                    barrier,
+                                                    check_replicated,
+                                                    replicated)
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system import pipeline as pl
+    from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.system.refine import (crop_and_downsample,
+                                                    refine_views,
+                                                    render_refine_views)
+    from gaussianip_tpu_torch.system.stage3 import (Stage3Config,
+                                                    draw_view_ids,
+                                                    make_stage3_step)
+
+    from gaussianip_tpu_torch import set_precision_policy
+
+    set_precision_policy()  # as the parent's
+    dev = str(group.device)
+    main = group.rank == 0
+    gs = GaussianState(**{k: v.to(dev) if isinstance(v, torch.Tensor)
+                          else v for k, v in torch.load(scene_path).items()})
+    gs = replicated(group, gs)
+    out = {"launches": {}, "ms": {}}
+
+    def part(name, fn):
+        """(fn(group), fn(None) in rank 0, else None)."""
+        t0 = time.perf_counter()
+        ref = fn(None) if main else None
+        single_s = time.perf_counter() - t0
+        barrier(group)
+        t0 = time.perf_counter()
+        got, out["launches"][name] = count_launches(lambda: fn(group))
+        out["ms"][name] = {"part_s": time.perf_counter() - t0,
+                           "single_part_s": single_s}
+        return got, ref
+
+    # stage 1: the guided steps and the densify
+    guidance = pl.build_random_sd15_guidance(seed=SEED, device=dev)
+    cfg = s1.Stage1Config(render_height=RES, render_width=RES)
+    cam_cfg = CameraSamplerConfig(height=RES, width=RES, batch_size=BATCH)
+    rcfg = RenderConfig(d_max=D_MAX)
+    densify, _ = s1.make_densify_fns(cfg)
+
+    def stage1(grp):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step = s1.make_train_step(cfg, cam_cfg, rcfg, AdamHyper(), guidance,
+                                  points3d, group=grp)
+        ts, r = s1.init_train_state(gs), {"losses": [], "ms": []}
+        for i in range(DP_STEPS):
+            t0 = time.perf_counter()
+            ts, m = step(ts, gen)
+            r["losses"].append(float(m["loss"]))  # waits for the step
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                r["first"] = ts
+            if i == DP_DENSIFY_AT:
+                r["n_before"] = ts.gaussians.n_active
+                ts, _ = densify(ts, gen)
+        check_replicated(grp, ts, "dp:stage1")
+        r["n_after"] = ts.gaussians.n_active
+        return r
+
+    got, ref = part("stage1", stage1)
+    out["ms"]["stage1"].update(ms_per_step=got["ms"])
+    if main:
+        floor = guidance_half_batch_l2(guidance, torch.Generator(
+            device=dev).manual_seed(SEED), dev)
+        tol = max(DP_GUIDED_FACTOR * floor, DP_GUIDED_MIN)
+        errs = dp_compare("dp:stage1", got["first"], ref["first"], tol,
+                          rel_l2)
+        worst = dp_compare("dp:stage1", got["first"], ref["first"],
+                           float("inf"))
+        n_g, n_r = got["n_after"], ref["n_after"]
+        if abs(n_g - n_r) > DP_COUNT_RTOL * n_r:
+            raise AssertionError(f"dp:stage1: {n_g} gaussians after the "
+                                 f"densify against the single process's "
+                                 f"{n_r}")
+        log("dp:stage1", views_per_rank=BATCH // group.world_size,
+            res=RES, steps=DP_STEPS, losses=got["losses"],
+            single_losses=ref["losses"],
+            loss_rel_err=dp_losses("dp:stage1", got["losses"],
+                                   ref["losses"], DP_LOSS_RTOL),
+            loss_rtol=DP_LOSS_RTOL, step1_rel_l2=errs,
+            half_batch_rel_l2=floor,
+            step1_tol=tol, step1_worst_rel=worst,
+            n_before_densify=got["n_before"],
+            n_after_densify=n_g, single_n_after_densify=n_r,
+            ms_per_step=[round(x, 3) for x in got["ms"]],
+            single_ms_per_step=[round(x, 3) for x in ref["ms"]],
+            launches=out["launches"]["stage1"])
+    del got, ref
+
+    # stage 3 on the handoff views of the scene (each view's target: the
+    # crop of its neighbour's render)
+    lpips = pl.build_random_lpips(SEED, dev)
+    orbit = refine_orbit_batch(REFINE_VIEWS, 17.0, 1.5, 70.0, HIRES, HIRES,
+                               device=dev)
+    own = render_refine_views(gs, orbit, points3d, HIRES, HIRES, rcfg)
+    # every rank takes rank 0's views, as every rank of the command line
+    # reads one before_refine.npz; how far each rank's own were from them
+    images, poses = replicated(group, own)
+    own_diff = {k: float(all_max(group, (a - b).abs().max()))
+                for k, a, b in zip(("images", "poses"), own, (images, poses))}
+    del own
+    targets = crop_and_downsample(images.roll(1, dims=0))
+    cfg3 = Stage3Config()
+    rcfg3 = RenderConfig(d_max=S3_D_MAX)
+    ids = draw_view_ids(torch.Generator(device=dev).manual_seed(SEED),
+                        REFINE_VIEWS, cfg3.train_bs, DP_S3_STEPS, dev)
+
+    def stage3(grp):
+        step = make_stage3_step(cfg3, rcfg3, AdamHyper(), orbit, targets,
+                                lpips, grp)
+        ts, r = s1.init_train_state(gs), {"losses": [], "ms": []}
+        for i in range(DP_S3_STEPS):
+            t0 = time.perf_counter()
+            ts, m = step(ts, ids[i])
+            r["losses"].append(float(m["loss"]))
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                r["first"] = ts
+        check_replicated(grp, ts, "dp:stage3")
+        return r
+
+    got, ref = part("stage3", stage3)
+    out["ms"]["stage3"].update(ms_per_step=got["ms"])
+    if main:
+        errs = dp_compare("dp:stage3", got["first"], ref["first"],
+                          BWD_REL_TOL)
+        log("dp:stage3", views_per_rank=cfg3.train_bs // group.world_size,
+            res=HIRES, steps=DP_S3_STEPS, losses=got["losses"],
+            single_losses=ref["losses"],
+            loss_rel_err=dp_losses("dp:stage3", got["losses"],
+                                   ref["losses"], DP_S3_RTOL),
+            loss_rtol=DP_S3_RTOL, step1_rel_err=errs, step1_tol=BWD_REL_TOL,
+            ms_per_step=[round(x, 3) for x in got["ms"]],
+            single_ms_per_step=[round(x, 3) for x in ref["ms"]],
+            launches=out["launches"]["stage3"])
+    del got, ref, lpips
+
+    # stage 2: refine_views, dense groups of 8 split over the ranks
+    models = pl.refine_models(guidance)
+    contexts = pl.random_refine_contexts(SEED, dev)
+    side = HIRES // models.vae.cfg.downscale
+    noise = torch.randn((4, side, side), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+
+    def refine(grp):
+        views = refine_views(models, images, poses, contexts, noise,
+                             num_steps=DP_REFINE_STEPS,
+                             dense_batch=4 if grp is None else 8, group=grp)
+        check_replicated(grp, views, "dp:refine")
+        return views
+
+    got, ref = part("refine", refine)
+    # the single process on every rank at once: how far one process's
+    # refine is from another's on the same inputs
+    again = refine(None)
+    spread = float(all_max(group, (again - replicated(group, again))
+                           .abs().max()))
+    del again
+    check_images("dp:refine", got, images.shape)
+    if main:
+        err = float((got - ref).abs().max())
+        views = (got - ref).abs().flatten(1).amax(1)
+        mean = float((got - ref).abs().mean())
+        if not (err <= DP_REFINE_TOL and mean <= DP_REFINE_MEAN_TOL):
+            raise AssertionError(
+                f"dp:refine: worst {err} (tol {DP_REFINE_TOL}), mean {mean} "
+                f"(tol {DP_REFINE_MEAN_TOL}) against the single process")
+        log("dp:refine", views=REFINE_VIEWS, res=HIRES,
+            steps=DP_REFINE_STEPS, max_abs_err=err, tol=DP_REFINE_TOL,
+            mean_abs_err=mean, mean_tol=DP_REFINE_MEAN_TOL,
+            views_differing=int((views > 0).sum()),
+            single_across_processes_max_abs=spread,
+            handoff_own_vs_rank0=own_diff,
+            wall_s=round(out["ms"]["refine"]["part_s"], 3),
+            single_wall_s=round(out["ms"]["refine"]["single_part_s"], 3),
+            launches=out["launches"]["refine"])
+    del got, ref, models, guidance
+    torch.cuda.empty_cache()
+
+    # one stub-guided step through the group path in a world-size-1 NCCL
+    # group (rank 0), against the step without a group
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    pg = dist.new_group([0], backend=backend)
+    if main:
+        tgt = np.zeros((256, 256, 3), np.float32)
+        tgt[64:192, 96:160] = 0.8
+        stub = make_stub_guidance(target_rgb=tgt, noise_scale=0.01)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        batch = sample_train_batch(cam_cfg, gen, 0, dev)
+        draws = stub.sample_noise(gen, (BATCH, RES, RES, 3), dev)
+        ts0 = s1.init_train_state(gs)
+        args = (cfg, cam_cfg, rcfg, AdamHyper(), stub, points3d)
+        ref_ts, ref_m = s1.make_inner_step(*args)(ts0, batch, draws)
+        one = DataGroup(0, 1, group.device, pg)
+        (got_ts, got_m), launches = count_launches(
+            lambda: s1.make_inner_step(*args, group=one)(ts0, batch, draws))
+        if float(got_m["loss"]) != float(ref_m["loss"]):
+            raise AssertionError(f"dp:nccl: loss {float(got_m['loss'])} "
+                                 f"!= {float(ref_m['loss'])}")
+        errs = dp_compare("dp:nccl", got_ts, ref_ts, BWD_REL_TOL)
+        out["launches"]["nccl"] = launches
+        log("dp:nccl", backend=dist.get_backend(pg), world_size=1,
+            loss=float(got_m["loss"]), rel_err=errs, tol=BWD_REL_TOL,
+            launches=launches)
+        # K1 / K2 against their plain versions at one rank's shapes
+        check_kernels(gs, camera_from_c2w(
+            batch.c2w[:BATCH // group.world_size],
+            batch.fovy[:BATCH // group.world_size], RES, RES), rcfg, gen,
+            "dp", timing=False)
+    barrier(group)
+    return out
+
+
+def dp_phase(gs, sk, dev="cuda"):
+    """Phase dp: DP_RANKS gloo ranks on `dev` through parallel.spawn from
+    the scene `gs` (see DP_RANKS). Every kernel must launch in every rank
+    as many times as its parts make it; returns each rank's launches over
+    the gloo parts (stage 1, stage 3, the refine)."""
+    import tempfile
+
+    import torch
+    from gaussianip_tpu_torch.parallel.mesh import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.pt")
+        torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in vars(gs).items()}, path)
+        t0 = time.perf_counter()
+        card = "cuda:0" if dev == "cuda" else dev  # both ranks on card 0
+        res = spawn(DP_RANKS, dp_rank, path, np.asarray(sk.points3d),
+                    backend="gloo", devices=[card] * DP_RANKS)
+        wall = time.perf_counter() - t0
+    # a refine step: anchors, keys and 3 dense groups of 8 (4 a rank)
+    calls = DP_REFINE_STEPS * 5
+    k3 = K3_SITES * (DP_STEPS + calls)
+    want = {"fwd": DP_STEPS + DP_S3_STEPS, "bwd": DP_STEPS + DP_S3_STEPS,
+            "conv3x3": k3, "conv3x3_hopper": k3, "conv3x3_general": 0}
+    totals = []
+    for r, out in enumerate(res):
+        tot = {k: sum(out["launches"][p][k] for p in ("stage1", "stage3",
+                                                      "refine"))
+               for k in want}
+        if tot != want:
+            raise AssertionError(f"dp: rank {r} launches {tot} != {want}")
+        totals.append(tot)
+    log("dp", ranks=DP_RANKS, backend="gloo", device=dev,
+        wall_s=round(wall, 3), launches_by_rank=totals,
+        nccl_launches=res[0]["launches"]["nccl"],
+        seconds_by_rank=[{p: {k: (round(v, 3) if isinstance(v, float)
+                                  else [round(x, 3) for x in v])
+                              for k, v in m.items()}
+                          for p, m in out["ms"].items()} for out in res])
+    return totals
+
+
 def kernel_bound(info, kind_, ops="ops"):
     """(bound ms, "bytes" or "operations") of K1 ("fwd") or K2 ("bwd") from
     check_kernels' counts."""
@@ -2902,8 +3292,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     real = cli_real_phase()
     launches_real = real["launches"]
+    torch.cuda.empty_cache()
 
-    # 11. kernels line: K1/K2 timed at the stub-guided path's shapes, at
+    # 11. data parallel: two gloo ranks on the card through stages 1, 3 and
+    # the refine against the single process, and one NCCL rank
+    launches_dp = dp_phase(gs0, sk)
+
+    # 12. kernels line: K1/K2 timed at the stub-guided path's shapes, at
     # stage 3's and at photo reconstruction's (K1 also at an animation
     # frame's), launches on the guided
     # path and per path (launches_by_path; "cli": per stage of the command
@@ -2920,6 +3315,8 @@ def main() -> int:
                               for stage, v in launches_cli.items()}
     real_launches = lambda k: {stage: v[k]
                                for stage, v in launches_real.items()}
+    dp_launches = lambda k: {f"rank {r}": v[k]
+                             for r, v in enumerate(launches_dp)}
     src = "gaussianip_tpu_torch/csrc/composite.cu"
     kernels = []
     for kind_, name, rep, err in (
@@ -2935,7 +3332,8 @@ def main() -> int:
             "launches": launches_g[kind_], "launches_by_path": {
                 **{k: v[kind_] for k, v in by_path.items()},
                 "cli": cli_launches(kind_),
-                "cli:real": real_launches(kind_)},
+                "cli:real": real_launches(kind_),
+                "dp": dp_launches(kind_)},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -2966,7 +3364,8 @@ def main() -> int:
         "launches": launches_g["conv3x3"], "launches_by_path": {
             **{k: v["conv3x3"] for k, v in by_path.items()},
             "cli": cli_launches("conv3x3"),
-            "cli:real": real_launches("conv3x3")},
+            "cli:real": real_launches("conv3x3"),
+            "dp": dp_launches("conv3x3")},
         "launches_by_variant": {
             "hopper": launches_g["conv3x3_hopper"],
             "general": launches_g["conv3x3_general"]},

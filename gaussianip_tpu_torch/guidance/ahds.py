@@ -161,8 +161,11 @@ def sds_grad(noise_pred_neg, noise_pred_pos, noise, t, alphas_cumprod,
     return w * (noise_pred - noise)
 
 
-def sds_loss(latents, grad):
-    """The loss whose gradient in `latents` is `grad`."""
+def sds_loss(latents, grad, batch_size: int | None = None):
+    """The loss whose gradient in `latents` is grad / B: a mean over a
+    batch of B rows, B = batch_size (the whole batch's when `latents` are
+    one data-parallel rank's rows), else latents' rows."""
     grad = torch.nan_to_num(grad)
     target = (latents - grad).detach()
-    return 0.5 * ((latents - target) ** 2).sum() / latents.shape[0]
+    b = latents.shape[0] if batch_size is None else batch_size
+    return 0.5 * ((latents - target) ** 2).sum() / b

@@ -164,7 +164,8 @@ class AHDSGuidance:
                                 cfg.guidance_scale, cfg.weighting_strategy,
                                 cfg.guidance_rescale)
         return {
-            "loss_sds": sds_loss(latents, grad),
+            "loss_sds": sds_loss(latents, grad,
+                                 view_aux.get("batch_size", b)),
             "grad_norm": torch.linalg.vector_norm(grad),
             "t_mean": t.float().mean(),
         }

@@ -3,8 +3,10 @@ the diffusion stack (port of gaussianip_tpu/guidance/stub.py).
 
     target = detach(rgb - grad)
     loss   = 0.5 * ||rgb - target||^2 / B
-with `grad` = (rgb - target image) + noise_scale * noise. The noise is an
-argument: the train step draws it from its generator with `sample_noise`.
+with `grad` = (rgb - target image) + noise_scale * noise and B the whole
+batch's size (view_aux["batch_size"], else rgb's rows: a data-parallel
+rank holds only its own rows). The noise is an argument: the train step
+draws it from its generator with `sample_noise`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class StubGuidance:
             0, 2, 3, 1)
 
     def __call__(self, step, noise, rgb, control_img, view_aux):
-        b = rgb.shape[0]
+        b = view_aux.get("batch_size", rgb.shape[0])
         if self.target_rgb is not None:
             grad = rgb - self._target(rgb.shape[1], rgb.shape[2], rgb.device)
         else:

@@ -29,9 +29,19 @@ instead.
 `--export` turns the trained .ply (`--resume_from`, else the manifest's
 final_ply, else save/last.ply) into a textured OBJ/MTL/PNG under
 export/, with `system.exporter`'s settings (ops/mesh_export.py), and
-records the paths in the manifest. Refused with an error naming what is
-missing: `--devices N` with N > 1 (data parallel: ROADMAP.md Queue 1
-item 5).
+records the paths in the manifest.
+
+Data parallel (`--devices auto|1|N`, launch.py's batch-vs-mesh policy):
+each stage runs in N processes (parallel/mesh.py:spawn) that split the
+camera / view batch and keep the gaussian state replicated. On the card
+N is at most the visible cards, one card a rank, over NCCL; `--device cpu
+--devices N` runs N gloo ranks on the CPU. `auto` is every visible card on
+`--device cuda` and 1 on the CPU. The stage-1 camera batch and stage 3's
+refine_train_bs round up to a multiple of N; with `--recipe_batch` they
+stay as configured and N falls to the largest divisor of the stage's
+batch (stage 1: data.batch_size, stage 2: refine_train_bs). Stage 3 takes
+N without that cap, as launch.py does. Rank 0 writes the run directory,
+the others wait for it; a rank that fails fails the command.
 """
 
 from __future__ import annotations
@@ -47,27 +57,61 @@ import gaussianip_tpu_torch as gt
 
 
 def _check_args(args):
-    """Refuse what the port cannot run yet, and the card when it is
-    missing; nothing falls back quietly."""
+    """Refuse the card when it is missing, and more ranks than cards;
+    nothing falls back quietly."""
+    import torch
+
     devices = str(getattr(args, "devices", "auto"))
-    if devices != "auto" and int(devices) > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: the port runs on one card; data parallel "
-            "is ROADMAP.md Queue 1 item 5")
+    if devices != "auto" and int(devices) < 1:
+        raise ValueError(f"--devices {devices}: at least 1")
     device = getattr(args, "device", "cuda")
     if device == "cuda":
-        import torch
-
+        visible = torch.cuda.device_count()
+        if devices != "auto" and int(devices) > visible:
+            raise RuntimeError(
+                f"--devices {devices}: {visible} CUDA device(s) visible; "
+                "the port runs one card a rank")
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda: no CUDA device is visible "
                                "(pass --device cpu to run on the CPU)")
 
 
-def compute_dtype(device: str):
+def resolve_world(args, recipe_batch: int = 0) -> int:
+    """The data-parallel world size (launch.py's resolve_mesh): `--devices
+    1` one process, `auto` every visible card on --device cuda and 1 on the
+    CPU, N as given; with --recipe_batch it falls to the largest divisor of
+    recipe_batch, so that the configured batch stays exact."""
+    devices = str(getattr(args, "devices", "auto"))
+    if devices == "auto":
+        import torch
+
+        n = torch.cuda.device_count() if args.device == "cuda" else 1
+    else:
+        n = int(devices)
+    if recipe_batch and getattr(args, "recipe_batch", False):
+        while recipe_batch % n:
+            n -= 1
+    return max(n, 1)
+
+
+def scale_batch(bs: int, world: int) -> int:
+    """A batch size rounded up to a multiple of the world size (launch.py's
+    _scale_batch: every rank renders at least one view a step)."""
+    return -(-bs // world) * world
+
+
+def compute_dtype(device):
     """bf16 on the card (K3 takes bf16 only), float32 on the CPU."""
     import torch
 
-    return torch.bfloat16 if device == "cuda" else torch.float32
+    return torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+
+
+def _rank_device(args, group) -> str:
+    """The stage's device: the rank's, else --device."""
+    return str(group.device) if group is not None else getattr(
+        args, "device", "cuda")
 
 
 def build_skeleton(system_cfg, stub: bool, device="cuda"):
@@ -181,7 +225,11 @@ def _real_refine_inputs(cfg, device: str):
     return models, enc, ip_cond, ip_uncond
 
 
-def run_stage1(cfg, dirs, args):
+def run_stage1(cfg, dirs, args, group=None):
+    """Stage 1; `group`: this rank's data-parallel group (None: one
+    process)."""
+    from dataclasses import replace
+
     import torch
 
     from .data.cameras import camera_from_c2w
@@ -190,6 +238,8 @@ def run_stage1(cfg, dirs, args):
     from .model.gaussians import create_from_pcd
     from .model.ply import state_to_ply
     from .ops.knn import mean_dist2_3nn
+    from .parallel.mesh import (barrier, check_replicated, is_main,
+                                replicated, world_size)
     from .render.render import RenderConfig, render
     from .system.refine import render_refine_views
     from .system.stage1 import Stage1Config, init_train_state, train_stage1
@@ -199,7 +249,8 @@ def run_stage1(cfg, dirs, args):
     from .utils.saving import save_image
 
     _check_args(args)
-    dev = getattr(args, "device", "cuda")
+    dev = _rank_device(args, group)
+    main = is_main(group)
     sys_cfg = cfg["system"]
     sk = build_skeleton(sys_cfg, args.stub_guidance, dev)
 
@@ -230,6 +281,8 @@ def run_stage1(cfg, dirs, args):
         max_steps=int(cfg["trainer"]["max_steps"]),
     )
     cam_cfg = camera_config(cfg, s1.render_height, s1.render_width)
+    cam_cfg = replace(cam_cfg, batch_size=scale_batch(cam_cfg.batch_size,
+                                                      world_size(group)))
     if args.stub_guidance:
         guidance = _stub_stack(cfg, sys_cfg["prompt_processor"]["prompt"],
                                sys_cfg["prompt_processor"]["negative_prompt"],
@@ -257,7 +310,7 @@ def run_stage1(cfg, dirs, args):
         if not native_io.write_png_async(p, img):
             save_image(p, img)
 
-    mlog = MetricsLogger(dirs.root)
+    mlog = MetricsLogger(dirs.root) if main else None
 
     def log(i, m):
         gt.info(f"step {i}: loss={m['loss']:.4f} sds={m['loss_sds']:.4f} "
@@ -276,19 +329,25 @@ def run_stage1(cfg, dirs, args):
         else:
             gt.info(f"--resume: no checkpoint at {src}; starting fresh")
         n_steps = max(n_steps - ts.step, 0)
+    ts = replicated(group, ts)
 
     def save_ckpt(i, ts_state):
         save_train_state_npz(ckpt_path, ts_state)
 
+    # every rank draws from the same seed: the whole batch, then its rows
     generator = torch.Generator(device=dev).manual_seed(int(cfg.get("seed",
                                                                     42)))
     ts = train_stage1(
         ts, s1, cam_cfg, rcfg, AdamHyper(), guidance, sk.points3d,
-        generator, n_steps=n_steps, log_fn=log,
+        generator, n_steps=n_steps, log_fn=log if main else None,
         log_every=int(cfg["trainer"].get("log_every_n_steps", 100)),
-        val_every=val_every, val_fn=save_val,
+        val_every=val_every, val_fn=save_val if main else None,
         ckpt_every=int(cfg["trainer"].get("ckpt_every_n_steps", 500)),
-        ckpt_fn=save_ckpt)
+        ckpt_fn=save_ckpt if main else None, group=group)
+    check_replicated(group, ts, "stage 1")
+    if not main:
+        barrier(group)  # rank 0 writes the handoff
+        return
     mlog.close()
 
     # the 32 refine views and their pose maps (the before_refine handoff)
@@ -313,20 +372,24 @@ def run_stage1(cfg, dirs, args):
     dirs.manifest(stage1="done", stage1_steps=total_steps, ply=ply_path,
                   stage1_wall_s=round(time.time() - t0, 1))
     gt.info(f"stage 1 done in {time.time() - t0:.0f}s -> {ply_path}")
+    barrier(group)
 
 
-def run_stage2(cfg, dirs, args):
-    """In-process VCR refinement of the 32 handoff views."""
+def run_stage2(cfg, dirs, args, group=None):
+    """In-process VCR refinement of the 32 handoff views; with a
+    data-parallel `group` the views split over the ranks (dense groups of
+    8, as launch.py passes on a mesh)."""
     import torch
 
     from .guidance.prompts import fake_text_encoder
     from .ops.resize import linear_resize
+    from .parallel.mesh import barrier, is_main
     from .system.refine import (RefineModels, crop_and_downsample,
                                 refine_contexts, refine_views)
     from .utils.saving import save_image
 
     _check_args(args)
-    dev = getattr(args, "device", "cuda")
+    dev = _rank_device(args, group)
     sys_cfg = cfg["system"]
     with np.load(dirs.path("before_refine.npz")) as data:
         images = torch.as_tensor(data["images"], device=dev)
@@ -351,7 +414,11 @@ def run_stage2(cfg, dirs, args):
     noise = torch.randn((4, s, s), device=dev, generator=torch.Generator(
         device=dev).manual_seed(2024))
     refined = refine_views(models, images, control, contexts, noise,
-                           dense_batch=4)
+                           dense_batch=4 if group is None else 8,
+                           group=group)
+    if not is_main(group):
+        barrier(group)  # rank 0 writes the views
+        return
     refined_np = refined.cpu().numpy()  # one device pull, not 32
     for i in range(refined_np.shape[0]):
         save_image(dirs.path("save", f"refined_rgb_{i}.png"), refined_np[i])
@@ -361,9 +428,12 @@ def run_stage2(cfg, dirs, args):
              refined_rgbs_small=small.cpu().numpy())
     dirs.manifest(stage2="done")
     gt.info(f"stage 2 done -> {dirs.path('after_refine.npz')}")
+    barrier(group)
 
 
-def run_stage3(cfg, dirs, args):
+def run_stage3(cfg, dirs, args, group=None):
+    """Stage 3; `group`: this rank's data-parallel group (None: one
+    process)."""
     import torch
 
     from dataclasses import replace
@@ -371,6 +441,8 @@ def run_stage3(cfg, dirs, args):
     from .data.sampler import eval_orbit_batch, refine_orbit_batch
     from .model.adam import AdamHyper
     from .model.ply import state_from_ply, state_to_ply
+    from .parallel.mesh import (barrier, check_replicated, is_main,
+                                replicated, world_size)
     from .render.render import RenderConfig
     from .system.stage1 import init_train_state
     from .system.stage3 import (Stage3Config, draw_view_ids,
@@ -379,10 +451,11 @@ def run_stage3(cfg, dirs, args):
     from .utils.saving import save_image, save_video
 
     _check_args(args)
-    dev = getattr(args, "device", "cuda")
+    dev = _rank_device(args, group)
+    main = is_main(group)
     sys_cfg = cfg["system"]
-    gs = state_from_ply(dirs.manifest().get("ply"), device=dev)
-    ts = init_train_state(gs)
+    gs = state_from_ply(dirs.manifest_get("ply"), device=dev)
+    ts = replicated(group, init_train_state(gs))
     with np.load(dirs.path("after_refine.npz")) as data:
         refined = torch.as_tensor(data["refined_rgbs_small"], device=dev)
 
@@ -402,7 +475,8 @@ def run_stage3(cfg, dirs, args):
         height=H, width=H, crop_y=cy, crop_x=cx,
         refine_start_step=int(sys_cfg.get("refine_start_step", 2400)),
         max_steps=args.max_steps or int(cfg["trainer"]["max_steps"]),
-        train_bs=int(sys_cfg.get("refine_train_bs", 4)),
+        train_bs=scale_batch(int(sys_cfg.get("refine_train_bs", 4)),
+                             world_size(group)),
         lambda_l1=float(sys_cfg.get("lambda_l1", 10)),
         lambda_lpips=float(sys_cfg.get("lambda_lpips", 15)),
         max_grad=float(sys_cfg["max_grad"]),
@@ -418,14 +492,19 @@ def run_stage3(cfg, dirs, args):
     view_ids = draw_view_ids(gen, n_views, s3.train_bs, s3.max_steps, dev)
     split_noise = torch.randn((2, gs.capacity, 3), generator=gen, device=dev)
     t0 = time.time()
-    mlog = MetricsLogger(dirs.root)
+    mlog = MetricsLogger(dirs.root) if main else None
 
     def s3log(i, m):
         gt.info(f"s3 step {i}: loss={m['loss']:.4f}")
         mlog.log(i + s3.refine_start_step, m)
 
     ts = train_stage3(ts, s3, RenderConfig(), AdamHyper(), orbit, refined,
-                      view_ids, split_noise, lpips_fn=lpips_fn, log_fn=s3log)
+                      view_ids, split_noise, lpips_fn=lpips_fn,
+                      log_fn=s3log if main else None, group=group)
+    check_replicated(group, ts, "stage 3")
+    if not main:
+        barrier(group)  # rank 0 writes the turntable and the .ply
+        return
     mlog.close()
 
     # the test orbit's video and the final ply
@@ -443,6 +522,7 @@ def run_stage3(cfg, dirs, args):
     dirs.manifest(stage3="done", final_ply=final_ply,
                   stage3_wall_s=round(time.time() - t0, 1), video=video)
     gt.info(f"stage 3 done in {time.time() - t0:.0f}s -> {final_ply}")
+    barrier(group)
 
 
 def run_export(cfg, dirs, args):
@@ -471,6 +551,45 @@ def run_export(cfg, dirs, args):
     dirs.manifest(export=paths)
     gt.info(f"export done -> {paths['obj']}")
     return paths
+
+
+STAGES = {"stage1": run_stage1, "stage2": run_stage2, "stage3": run_stage3}
+
+
+def run(stage: str, cfg, dirs, args):
+    """One stage, in this process or, when the world size (resolve_world)
+    is above 1, in that many ranks; the manifest then records world_size."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage}")
+    sys_cfg = cfg["system"]
+    world = resolve_world(args, {
+        "stage1": int(cfg["data"].get("batch_size", 4)),
+        "stage2": int(sys_cfg.get("refine_train_bs", 4)),
+        "stage3": 0}[stage])
+    if world == 1:
+        STAGES[stage](cfg, dirs, args)
+        return
+    from .parallel.mesh import spawn
+
+    cuda = args.device == "cuda"
+    dirs.manifest(world_size=world)
+    gt.info(f"data parallel over {world} ranks ("
+            + ("NCCL, one card a rank)" if cuda else "gloo on the CPU)"))
+    spawn(world, _rank_stage, stage, cfg, dirs.root, args,
+          backend="nccl" if cuda else "gloo",
+          devices=[f"cuda:{r}" for r in range(world)] if cuda else None)
+
+
+def _rank_stage(group, stage: str, cfg, root: str, args):
+    """What each rank of `run` runs."""
+    from .utils import native_io
+    from .utils.saving import RunDirs
+
+    gt.set_precision_policy()
+    np.random.seed(int(cfg.get("seed", 42)))
+    STAGES[stage](cfg, RunDirs(os.path.dirname(root),
+                               os.path.basename(root)), args, group)
+    native_io.flush()  # a rank's process ends without its atexit hooks
 
 
 def record_runtime(dirs, device: str):
@@ -504,10 +623,13 @@ def parse_args(argv=None):
                         help="explicit TrainState checkpoint path (implies "
                              "--resume)")
     parser.add_argument("--devices", default="auto",
-                        help="auto or 1: one card (more raises)")
+                        help="data-parallel ranks: auto (every visible card; "
+                             "1 with --device cpu), 1, or N (one card a "
+                             "rank; --device cpu: N gloo ranks)")
     parser.add_argument("--recipe_batch", action="store_true",
-                        help="accepted; with one card the configured camera "
-                             "batch is used as it is")
+                        help="keep the configured batch and cap the ranks "
+                             "to its largest divisor, instead of rounding "
+                             "the batch up to a multiple of the ranks")
     parser.add_argument("--gpu", default="0")  # accepted for CLI parity
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the port runs (cuda: the card, and an "
@@ -533,14 +655,8 @@ def main(argv=None):
 
     if args.export:
         run_export(cfg, dirs, args)
-    elif stage == "stage1":
-        run_stage1(cfg, dirs, args)
-    elif stage == "stage2":
-        run_stage2(cfg, dirs, args)
-    elif stage == "stage3":
-        run_stage3(cfg, dirs, args)
     else:
-        raise ValueError(f"unknown stage {stage}")
+        run(stage, cfg, dirs, args)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ refine.py):
   python -m gaussianip_tpu_torch.refine --config_path configs/exp.yaml \
       --log_path logs --cur_time <id> [--stub-guidance] [--device cpu]
 
-A thin wrapper over the in-process stage-2 path (launch.run_stage2), with
-launch's refusals; without `--stub-guidance` it loads the checkpoints the
-config names."""
+A thin wrapper over launch's stage 2 (launch.run: one process, or
+`--devices N` ranks as launch runs them), with launch's refusals; without
+`--stub-guidance` it loads the checkpoints the config names."""
 
 from __future__ import annotations
 
@@ -27,7 +27,9 @@ def main(argv=None):
     parser.add_argument("--prompt", default=None)
     parser.add_argument("--stub-guidance", action="store_true")
     parser.add_argument("--devices", default="auto",
-                        help="auto or 1: one card (more raises)")
+                        help="data-parallel ranks, as launch's --devices")
+    parser.add_argument("--recipe_batch", action="store_true",
+                        help="as launch's --recipe_batch")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args, extras = parser.parse_known_args(argv)
     launch._check_args(args)
@@ -42,7 +44,7 @@ def main(argv=None):
     cfg = load_config(args.config_path, *overrides)
     dirs = RunDirs(args.log_path, args.cur_time)
     launch.record_runtime(dirs, args.device)
-    launch.run_stage2(cfg, dirs, args)
+    launch.run("stage2", cfg, dirs, args)
 
 
 if __name__ == "__main__":

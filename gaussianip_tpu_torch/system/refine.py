@@ -38,6 +38,7 @@ from ..diffusion.scheduler import (
 )
 from ..human.posemap import openpose_draw
 from ..ops.resize import linear_resize
+from ..parallel.mesh import all_sum, gather_rows, is_main, row_span
 
 # processing order and names
 VIEW_IDX_ALL = [24, 8, 16, 0, 20, 28, 4, 12, 17, 18, 19, 21, 22, 23, 25, 26,
@@ -169,7 +170,7 @@ def refine_views(models: RefineModels, images, control_images,
                  num_steps: int = NUM_REFINE_STEPS, num_ladder: int = 50,
                  guidance_scale: float = 7.5, ip_scale: float = 0.6,
                  lambda_self: float = LAMBDA_SELF, dense_batch: int = 4,
-                 on_phase=None):
+                 on_phase=None, group=None):
     """Refined images [32, H, W, 3] in [0, 1], in canonical view order.
 
     images, control_images: [32, H, W, 3] in [0, 1] (the stage-1 renders
@@ -177,7 +178,15 @@ def refine_views(models: RefineModels, images, control_images,
     [2, S, D] (negative, positive); noise: [4, h, w], the draw shared by
     every view's forward diffusion. `on_phase(name)`, if given, is called
     after the VAE encode ("encode"), each denoise call ("anchors", "keys",
-    "dense") and the VAE decode ("decode"): timing hooks."""
+    "dense") and the VAE decode ("decode"): timing hooks.
+
+    group: a data-parallel group (parallel/mesh.py), every rank passing
+    the same arguments. The VAE encode and decode split the 32 views over
+    the ranks and gather them; the anchor and key phases run whole on
+    every rank (8 of the 32 views, repeated), so that each rank holds the
+    caches its dense views read without gathering them; each dense group's
+    views split over the ranks, and their latents are gathered before the
+    decode. Every rank returns all 32 views."""
     n_views = images.shape[0]
     if n_views != 32:
         raise ValueError("the VCR topology is defined for 32 views")
@@ -189,7 +198,9 @@ def refine_views(models: RefineModels, images, control_images,
     prevs = steps[1:] + [-1]
 
     note = on_phase or (lambda name: None)
-    latents0 = vae_encode(models.vae, images)
+    lo, hi = row_span(group, n_views)
+    latents0 = gather_rows(group, vae_encode(models.vae, images[lo:hi]),
+                           n_views)
     note("encode")
     lat = add_noise(ddim, latents0,
                     noise.to(latents0).expand_as(latents0),
@@ -212,11 +223,20 @@ def refine_views(models: RefineModels, images, control_images,
                               for j, n in enumerate(KEY_NAMES)}}
     anchors, keys = batch(ANCHOR_NAMES), batch(KEY_NAMES)
     key_src = _rows([ANCHOR_OF_KEY[n] for n in KEY_NAMES], rows_a)
-    dense = [(dict(w_l=w[0], w_r=w[1], lambda_self=lambda_self),
-              batch(names),
-              _rows([KEY_VIEW_NAME_PAIR[n][0] for n in names], rows_comb),
-              _rows([KEY_VIEW_NAME_PAIR[n][1] for n in names], rows_comb))
-             for w, names in dense_groups(dense_batch)]
+    # each dense group's views split over the ranks; `mine`: the views
+    # whose latents this rank contributes to the gather
+    mine = torch.zeros(n_views, dtype=torch.bool, device=dev)
+    mine[torch.cat([anchors[0], keys[0]])] = is_main(group)
+    dense = []
+    for w, names in dense_groups(dense_batch):
+        names = names[slice(*row_span(group, len(names)))]
+        if names:
+            dense.append((
+                dict(w_l=w[0], w_r=w[1], lambda_self=lambda_self),
+                batch(names),
+                _rows([KEY_VIEW_NAME_PAIR[n][0] for n in names], rows_comb),
+                _rows([KEY_VIEW_NAME_PAIR[n][1] for n in names], rows_comb)))
+            mine[dense[-1][1][0]] = True
 
     for t, tp in zip(steps, prevs):
         idx, ctx, ctrl = anchors
@@ -234,7 +254,9 @@ def refine_views(models: RefineModels, images, control_images,
                                [c[src_r] for c in comb]), weights)
             note("dense")
         comb = None
-    out = vae_decode(models.vae, lat)
+    if group is not None:
+        lat = all_sum(group, torch.where(mine[:, None, None, None], lat, 0))
+    out = gather_rows(group, vae_decode(models.vae, lat[lo:hi]), n_views)
     note("decode")
     return out
 

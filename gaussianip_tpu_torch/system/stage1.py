@@ -8,6 +8,17 @@ schedule boundaries. The step draws its camera batch and the guidance's
 random draws from a torch.Generator and hands them to the inner step
 (`make_inner_step`), which a test can call with injected draws.
 
+Data parallel (`group`, parallel/mesh.py; the JAX package's `mesh=`): every
+rank draws the whole batch from the same generator and keeps its own rows,
+so the draws, and the densify's, equal a single process's. Each rank's loss
+is its share of the global loss: the guidance divides by the global batch,
+the regularizer means are scaled by the rank's share of the views, and the
+depth normalisation takes the global max (`global_max`). The parameter
+gradients and the viewspace-offset gradient summed over the views are
+all-reduced before Adam and before `add_stats` takes its norm; the radii
+take the max over ranks, the visibility the any. Adam, densify and prune
+then run identically on every rank.
+
 Losses: loss_sds * lambda_sds + mean(sqrt(norm_depth^2 + 0.01)) *
 lambda_sparsity + bce(norm_depth, norm_depth) * lambda_opaque, with
 norm_depth = depth / max(depth).
@@ -33,6 +44,8 @@ from ..model.densify import (
     prune_only,
 )
 from ..model.gaussians import PARAM_FIELDS, GaussianState, state_from_numpy
+from ..parallel.mesh import (all_max, all_sum, all_sum_many, global_max,
+                             local_rows, world_size)
 from ..render.render import RenderConfig, render
 
 
@@ -91,18 +104,43 @@ def train_state_from_numpy(d: dict, device="cuda") -> TrainState:
     )
 
 
+def check_divides(batch_size: int, group, what: str = "camera batch"):
+    """Raise unless the batch divides over the group's ranks."""
+    if batch_size % world_size(group):
+        raise ValueError(f"{what} {batch_size} must divide over the "
+                         f"{world_size(group)} data-parallel ranks")
+
+
+def _global_metrics(group, metrics: dict, share: float) -> dict:
+    """The batch's metrics from the ranks' shares: the losses summed,
+    grad_norm the root of the summed squares, t_mean the batch mean."""
+    part = {k: v ** 2 if k == "grad_norm" else v * share if k == "t_mean"
+            else v for k, v in metrics.items()}
+    out = dict(zip(part, all_sum(group, torch.stack(
+        [v.float() for v in part.values()]))))
+    if "grad_norm" in out:
+        out["grad_norm"] = out["grad_norm"].sqrt()
+    return out
+
+
 def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                     render_cfg: RenderConfig, adam_hyper: AdamHyper,
-                    guidance: Callable, skel_points3d, hand_centers=None):
+                    guidance: Callable, skel_points3d, hand_centers=None,
+                    group=None):
     """`inner(ts, batch, draws) -> (ts, metrics)`: one step on a given
     camera batch and the guidance's draws (whatever its `sample_noise`
-    returns, passed through unread). skel_points3d: [18, 3] world
-    keypoints; hand_centers: [2, 3] wrists (disable_hand_densification)."""
+    returns, passed through unread; tensors with the batch on axis 0).
+    skel_points3d: [18, 3] world keypoints; hand_centers: [2, 3] wrists
+    (disable_hand_densification). With a data-parallel `group` the batch
+    and draws are the whole batch's, and the rank keeps its rows."""
     h, w = cfg.render_height, cfg.render_width
 
     def inner(ts: TrainState, batch, draws):
         g = ts.gaussians
         dev = g.device
+        b_all = batch.c2w.shape[0]
+        batch, draws = local_rows(group, (batch, draws))
+        share = batch.c2w.shape[0] / b_all  # 1.0 in a single process
         bg = torch.full((3,), 1.0 if cfg.bg_white else 0.0, device=dev)
         points3d = torch.as_tensor(np.asarray(skel_points3d, np.float32),
                                    device=dev)
@@ -124,23 +162,32 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
             "azimuth": batch.azimuth_deg,
             "center": batch.center_z,
             "camera_distances": batch.camera_distances,
+            "batch_size": b_all,
         })
         loss = gout["loss_sds"] * cfg.lambda_sds
-        norm_depth = out.depth / (out.depth.max() + 1e-5)
-        loss_sparsity = torch.sqrt(norm_depth ** 2 + 0.01).mean()
+        norm_depth = out.depth / (global_max(group, out.depth) + 1e-5)
+        loss_sparsity = torch.sqrt(norm_depth ** 2 + 0.01).mean() * share
         loss = loss + loss_sparsity * cfg.lambda_sparsity
         if cfg.lambda_opaque:
             nd = torch.clamp(norm_depth, 1e-3, 1 - 1e-3)
             loss_opaque = -(nd * torch.log(nd)
-                            + (1 - nd) * torch.log(1 - nd)).mean()
+                            + (1 - nd) * torch.log(1 - nd)).mean() * share
             loss = loss + loss_opaque * cfg.lambda_opaque
         grads = torch.autograd.grad(
             loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
 
         with torch.no_grad():
+            # the views' gradients: summed over the ranks, the offset's
+            # over the views first (add_stats takes the norm of the sum)
+            grads = all_sum_many(group, list(grads[:-1])
+                                 + [grads[-1].sum(dim=0)])
             # densification statistics
             radii = out.radii.amax(dim=0)
             visibility = (out.radii > 0).any(dim=0)
+            if group is not None:
+                rv = all_max(group, torch.stack([radii, visibility.to(
+                    radii.dtype)]))
+                radii, visibility = rv[0], rv[1] > 0
             if cfg.disable_hand_densification and hand_centers is not None:
                 hc = torch.as_tensor(np.asarray(hand_centers, np.float32),
                                      device=dev)
@@ -148,18 +195,23 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                                          dim=-1)
                 visibility = visibility & ~(dist.amin(dim=-1)
                                             < cfg.hand_radius)
-            stats = add_stats(ts.stats, grads[-1].sum(dim=0), radii,
-                              visibility)
+            stats = add_stats(ts.stats, grads[-1], radii, visibility)
             new_g, new_opt = adam_step(
                 g, dict(zip(PARAM_FIELDS, grads[:-1])), ts.opt, adam_hyper,
                 ts.step)
-        metrics = {
-            "loss": loss.detach(),
-            "loss_sds": gout["loss_sds"].detach(),
-            "loss_sparsity": loss_sparsity.detach(),
-            "n_active": new_g.n_active,
-            "n_dropped_instances": out.n_dropped.max(),
-        }
+            metrics = {
+                "loss": loss.detach(),
+                "loss_sds": gout["loss_sds"].detach(),
+                "loss_sparsity": loss_sparsity.detach(),
+            }
+            for k in ("grad_norm", "t_mean"):  # the guidance's diagnostics
+                if k in gout:
+                    metrics[k] = gout[k].detach()
+            if group is not None:
+                metrics = _global_metrics(group, metrics, share)
+            metrics["n_active"] = new_g.n_active
+            metrics["n_dropped_instances"] = all_max(group,
+                                                     out.n_dropped.max())
         return TrainState(new_g, new_opt, stats, ts.step + 1), metrics
 
     return inner
@@ -167,16 +219,21 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
 
 def make_train_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                     render_cfg: RenderConfig, adam_hyper: AdamHyper,
-                    guidance: Callable, skel_points3d, hand_centers=None):
+                    guidance: Callable, skel_points3d, hand_centers=None,
+                    group=None):
     """`step(ts, generator) -> (ts, metrics)`: draws the camera batch, then
     the guidance's draws, from `generator` (on the state's device) and runs
     the inner step. The guidance offers `sample_noise(generator, shape,
     device)`, with `shape` the render's [B, H, W, 3]; what it returns is
     opaque to the step (one tensor for the stub guidance, a dict for
     AHDSGuidance) and goes back as `guidance(step, draws, rgb, control,
-    aux)`, which must be differentiable in rgb."""
+    aux)`, which must be differentiable in rgb; aux["batch_size"] is the
+    whole batch's B, over which its loss is a mean. With a data-parallel
+    `group` every rank draws the whole batch (B = cam_cfg.batch_size,
+    which must divide over the ranks) from a generator seeded alike."""
+    check_divides(cam_cfg.batch_size, group)
     inner = make_inner_step(cfg, cam_cfg, render_cfg, adam_hyper, guidance,
-                            skel_points3d, hand_centers)
+                            skel_points3d, hand_centers, group)
     shape = (cam_cfg.batch_size, cfg.render_height, cfg.render_width, 3)
 
     def step(ts: TrainState, generator: torch.Generator):
@@ -231,7 +288,8 @@ def train_stage1(ts: TrainState, cfg: Stage1Config,
                  hand_centers=None, val_every: int = 0,
                  val_fn: Callable[[int, TrainState], None] | None = None,
                  ckpt_every: int = 0,
-                 ckpt_fn: Callable[[int, TrainState], None] | None = None):
+                 ckpt_fn: Callable[[int, TrainState], None] | None = None,
+                 group=None):
     """Host schedule loop for stage 1. `generator` lives on the state's
     device; metrics reach `log_fn` as host floats. After step index i,
     `val_fn(i, ts)` runs when i % val_every == 0 and i > 0, and
@@ -239,9 +297,14 @@ def train_stage1(ts: TrainState, cfg: Stage1Config,
 
     A resumed run (ts.step > 0) reseeds `generator` from its initial seed
     and the start step (resume_seed), so that it does not replay the draws
-    of the run it continues."""
+    of the run it continues.
+
+    group: a data-parallel group (parallel/mesh.py); the camera batch
+    splits over its ranks, each of which runs this loop with the same `ts`
+    and a generator seeded alike, and calls every callback (the caller
+    decides which rank writes)."""
     step_fn = make_train_step(cfg, cam_cfg, render_cfg, adam_hyper, guidance,
-                              skel_points3d, hand_centers)
+                              skel_points3d, hand_centers, group)
     densify, prune = make_densify_fns(cfg)
     n_steps = cfg.max_steps if n_steps is None else n_steps
     start = ts.step

@@ -11,6 +11,11 @@ One densify_and_prune (min_opacity 0.05) fires after the step of index
 densify_at_global_step - refine_start_step (global 2500). The reference's
 stage-3 prune_only never fires, so it is left out, as in the JAX package.
 The turntable renders the eval orbit after training.
+
+Data parallel (`group`, parallel/mesh.py): every rank takes its columns
+of the step's view ids; L1 and LPIPS are means over the whole batch (each
+rank's loss is its share), and the gradients, statistics and the densify
+follow stage 1's rules (system/stage1.py).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from ..model.adam import AdamHyper, adam_step
 from ..model.densify import add_stats, densify_and_prune
 from ..model.gaussians import PARAM_FIELDS
 from ..ops.resize import linear_resize
+from ..parallel.mesh import (all_max, all_sum, all_sum_many, local_rows,
+                             world_size)
 from ..render.render import RenderConfig, render
 from .refine import CROP_X, CROP_Y, RENDER_BATCH
-from .stage1 import TrainState
+from .stage1 import TrainState, check_divides
 
 
 @dataclass(frozen=True)
@@ -66,16 +73,21 @@ def draw_view_ids(generator: torch.Generator, n_views: int, train_bs: int,
 
 def make_stage3_step(cfg: Stage3Config, render_cfg: RenderConfig,
                      adam_hyper: AdamHyper, orbit: CameraBatch,
-                     refined_targets, lpips_fn: Callable | None = None):
+                     refined_targets, lpips_fn: Callable | None = None,
+                     group=None):
     """`step(ts, ids) -> (ts, metrics)`: one step on the views `ids`
     [train_bs] of `orbit` against refined_targets [32, Ht, Wt, 3]
     (cropped and halved). lpips_fn: (x, y) -> [B] distances, or None for
-    L1 alone."""
+    L1 alone. With a data-parallel `group`, `ids` are the whole step's and
+    the rank renders its columns."""
     h, w = cfg.height, cfg.width
     cy, cx = cfg.crop_y, cfg.crop_x
     th, tw = refined_targets.shape[1], refined_targets.shape[2]
+    check_divides(cfg.train_bs, group, "stage-3 view batch")
 
     def step(ts: TrainState, ids):
+        share = 1.0 / world_size(group)  # the rank's share of the views
+        ids = local_rows(group, ids)
         g = ts.gaussians
         dev = g.device
         bg = torch.full((3,), 1.0 if cfg.bg_white else 0.0, device=dev)
@@ -90,23 +102,27 @@ def make_stage3_step(cfg: Stage3Config, render_cfg: RenderConfig,
         crop = out.rgb[:, cy[0]:cy[1], cx[0]:cx[1], :]
         small = linear_resize(crop.permute(0, 3, 1, 2), th,
                               tw).permute(0, 2, 3, 1)
-        l1 = (small - tgt).abs().mean()
+        l1 = (small - tgt).abs().mean() * share
         loss = cfg.lambda_l1 * l1
         lp = torch.zeros((), device=dev)
         if lpips_fn is not None:
-            lp = lpips_fn(small, tgt).mean()
+            lp = lpips_fn(small, tgt).mean() * share
             loss = loss + cfg.lambda_lpips * lp
         grads = torch.autograd.grad(
             loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
         with torch.no_grad():
-            stats = add_stats(ts.stats, grads[-1].sum(dim=0),
-                              out.radii.amax(dim=0),
-                              (out.radii > 0).any(dim=0))
+            grads = all_sum_many(group, list(grads[:-1])
+                                 + [grads[-1].sum(dim=0)])
+            radii = all_max(group, out.radii.amax(dim=0))
+            stats = add_stats(ts.stats, grads[-1], radii,
+                              all_max(group, (out.radii > 0).any(dim=0)))
             new_g, new_opt = adam_step(
                 g, dict(zip(PARAM_FIELDS, grads[:-1])), ts.opt, adam_hyper,
                 ts.step + cfg.refine_start_step)
-        metrics = {"loss": loss.detach(), "l1": l1.detach(),
-                   "lpips": lp.detach(), "n_active": new_g.n_active}
+            m = torch.stack([loss, l1, lp]).detach()
+            loss, l1, lp = all_sum(group, m)
+        metrics = {"loss": loss, "l1": l1, "lpips": lp,
+                   "n_active": new_g.n_active}
         return TrainState(new_g, new_opt, stats, ts.step + 1), metrics
 
     return step
@@ -126,12 +142,15 @@ def train_stage3(ts: TrainState, cfg: Stage3Config, render_cfg: RenderConfig,
                  adam_hyper: AdamHyper, orbit: CameraBatch, refined_targets,
                  view_ids, split_noise, lpips_fn: Callable | None = None,
                  log_every: int = 100,
-                 log_fn: Callable[[int, dict], None] | None = None):
+                 log_fn: Callable[[int, dict], None] | None = None,
+                 group=None):
     """Runs len(view_ids) steps from ts.step; view_ids [n_steps, train_bs]
     (`draw_view_ids`), split_noise [2, CAP, 3] for the densify. Metrics
-    reach `log_fn` as host floats."""
+    reach `log_fn` as host floats. With a data-parallel `group` every rank
+    passes the same view_ids and split_noise; the step's views split over
+    the ranks."""
     step_fn = make_stage3_step(cfg, render_cfg, adam_hyper, orbit,
-                               refined_targets, lpips_fn)
+                               refined_targets, lpips_fn, group)
     start = ts.step
     for i in range(start, start + view_ids.shape[0]):
         ts, metrics = step_fn(ts, view_ids[i - start])

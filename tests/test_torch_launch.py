@@ -12,7 +12,9 @@ checkpoint, its .ply, the manifest and before_refine.npz) goes on in the
 port: stage 2 through the port's refine entry (gaussianip_tpu_torch/
 refine.py, at stub_image_size 16, to keep the file short), stage 3, and a
 stage-1 resume from the JAX checkpoint. The densify and prune steps lie
-beyond these runs. The file runs in ~50 s on one CPU worker.
+beyond these runs. The same four calls with `--devices 2` (2 gloo ranks on
+the CPU) leave the same files in the same layouts. The file runs in
+~110 s on one CPU worker.
 """
 
 import json
@@ -49,25 +51,37 @@ def _cli(log_path, run_id, *args):
         return json.load(f)
 
 
+def _stages(log, run_id, *args):
+    """Stages 1, 1 (resumed), 2 and 3 into <log>/<run_id>: the manifest
+    after each call."""
+    from gaussianip_tpu_torch.utils.checkpoint import LEAF_ORDER
+
+    man = {"stage1": _cli(log, run_id, "--train", "--stage", "stage1",
+                          "--max_steps", "2", *args)}
+    ck = os.path.join(log, run_id, "ckpt", "stage1_latest.npz")
+    with np.load(ck) as d:
+        man["ckpt_step_before_resume"] = int(
+            d[f"leaf_{LEAF_ORDER.index('step')}"])
+    man["resume"] = _cli(log, run_id, "--train", "--stage", "stage1",
+                         "--resume", "--max_steps", "3", *args)
+    man["stage2"] = _cli(log, run_id, "--stage", "stage2", *args)
+    man["stage3"] = _cli(log, run_id, "--train", "--stage", "stage3",
+                         "--max_steps", "2", *args)
+    return os.path.join(log, run_id), man
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The port's run directory after stages 1, 1 (resumed), 2 and 3, with
     the manifest after each call."""
-    from gaussianip_tpu_torch.utils.checkpoint import LEAF_ORDER
+    return _stages(str(tmp_path_factory.mktemp("logs")), "e2e")
 
-    log = str(tmp_path_factory.mktemp("logs"))
-    man = {"stage1": _cli(log, "e2e", "--train", "--stage", "stage1",
-                          "--max_steps", "2")}
-    ck = os.path.join(log, "e2e", "ckpt", "stage1_latest.npz")
-    with np.load(ck) as d:
-        man["ckpt_step_before_resume"] = int(
-            d[f"leaf_{LEAF_ORDER.index('step')}"])
-    man["resume"] = _cli(log, "e2e", "--train", "--stage", "stage1",
-                         "--resume", "--max_steps", "3")
-    man["stage2"] = _cli(log, "e2e", "--stage", "stage2")
-    man["stage3"] = _cli(log, "e2e", "--train", "--stage", "stage3",
-                         "--max_steps", "2")
-    return os.path.join(log, "e2e"), man
+
+@pytest.fixture(scope="module")
+def dp_run(tmp_path_factory):
+    """The same four calls with --devices 2: 2 gloo ranks on the CPU."""
+    return _stages(str(tmp_path_factory.mktemp("dp_logs")), "e2e",
+                   "--devices", "2")
 
 
 def _jax_init_state(capacity=CAPACITY):
@@ -299,19 +313,81 @@ def test_jax_run_continues_in_port(jax_run):
 
 
 @pytest.mark.parametrize("args,error", [
-    (["--device", "cpu", "--stub-guidance", "--devices", "2"],
-     "Queue 1 item 5"),
+    (["--device", "cuda", "--stub-guidance", "--devices", "2"],
+     r"--devices 2: 1 CUDA device\(s\) visible"),
     (["--stub-guidance"], "no CUDA device"),
 ])
 def test_cli_refuses(tmp_path, monkeypatch, args, error):
-    """Each refusal raises before the run directory exists."""
+    """Each refusal raises before the run directory exists: more ranks
+    than visible cards (one card a rank; with 1 visible), and the card
+    when there is none."""
     from gaussianip_tpu_torch import launch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((NotImplementedError, RuntimeError), match=error):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match=error):
         launch.main(["--config", CONFIG, "--cur_time", "x",
                      f"system.log_path={tmp_path}", *args])
     assert not os.path.exists(tmp_path / "x")
+
+
+def _files(root):
+    """Every file under root, a tensorboard event file's name without its
+    time stamp and host."""
+    names = (os.path.relpath(os.path.join(d, f), root)
+             for d, _, fs in os.walk(root) for f in fs)
+    return sorted(n.split(".tfevents.")[0] for n in names)
+
+
+def test_cli_data_parallel_same_files(run, dp_run):
+    """`--devices 2` on the CPU through stages 1 (and its resume), 2 and 3:
+    the run directory holds the files of the 1-rank run, the arrays in the
+    same layouts, the manifest the same keys and world_size 2, the stage-1
+    steps resumed as there."""
+    from gaussianip_tpu_torch.model.ply import state_from_ply
+    from gaussianip_tpu_torch.utils import native_io
+
+    native_io.flush()
+    (root, man), (dp_root, dp_man) = run, dp_run
+    assert _files(dp_root) == _files(root)
+    for name in ("before_refine.npz", "after_refine.npz",
+                 os.path.join("ckpt", "stage1_latest.npz")):
+        with np.load(os.path.join(root, name)) as a, \
+                np.load(os.path.join(dp_root, name)) as b:
+            assert {k: (a[k].shape, a[k].dtype) for k in a.files} == {
+                k: (b[k].shape, b[k].dtype) for k in b.files}, name
+            assert all(np.isfinite(b[k]).all() for k in b.files
+                       if b[k].dtype.kind == "f"), name
+    m = dp_man["stage3"]
+    assert m.pop("world_size") == 2
+    assert set(m) == set(man["stage3"])
+    assert dp_man["ckpt_step_before_resume"] == 2
+    assert dp_man["resume"]["stage1_steps"] == 3
+    with open(os.path.join(root, "metrics.csv")) as a, \
+            open(os.path.join(dp_root, "metrics.csv")) as b:
+        assert a.readline() == b.readline()
+    g = state_from_ply(m["final_ply"], device="cpu")
+    assert g.n_active > 0 and torch.isfinite(g.xyz[:g.n_active]).all()
+
+
+@pytest.mark.parametrize("devices,recipe,world,batch", [
+    ("3", False, 3, 6),  # the batch of 4 rounds up to 6
+    ("3", True, 2, 4),  # the ranks fall to 2, the batch stays 4
+    ("4", True, 4, 4),
+    ("1", False, 1, 4),
+    ("auto", False, 1, 4),  # auto on the CPU: one process
+])
+def test_world_size_and_batch_policy(devices, recipe, world, batch):
+    """launch.py's batch-vs-mesh policy for a configured batch of 4:
+    without --recipe_batch the batch rounds up to a multiple of the ranks,
+    with it the ranks fall to the batch's largest divisor."""
+    from gaussianip_tpu_torch import launch
+
+    args, _ = launch.parse_args(["--cur_time", "x", "--device", "cpu",
+                                 "--devices", devices]
+                                + ["--recipe_batch"] * recipe)
+    n = launch.resolve_world(args, 4)
+    assert (n, launch.scale_batch(4, n)) == (world, batch)
 
 
 def test_cli_export(run):
