@@ -155,7 +155,27 @@ def _stub_stack(cfg, prompt: str, negative_prompt: str, device: str):
         device=device, dtype=compute_dtype(device))
 
 
-def _real_stage1_guidance(cfg, dirs, device: str):
+def _face_identity(g_cfg, group):
+    """pipeline.face_identity of the face photo and the irrelevant face as
+    rank 0 computes it: without insightface its fallback embedding is
+    seeded by Python's str hash, which differs from process to process, so
+    each rank would otherwise condition on another identity."""
+    import torch
+
+    from .parallel.mesh import replicated
+    from .system import pipeline as pl
+
+    faces = pl.face_identity(g_cfg["pil_image_faceid_path"],
+                             g_cfg["irr_pil_image_path"])
+    if group is None:
+        return faces
+    a = [x.cpu().numpy() for x in replicated(group, [
+        torch.as_tensor(x, device=group.device) for pair in faces
+        for x in pair])]
+    return (a[0], a[1]), (a[2], a[3])
+
+
+def _real_stage1_guidance(cfg, dirs, device: str, group=None):
     """The stage-1 guidance from the released checkpoints: the models, the
     prompt embeddings (cached under the run's text_cache/ by the md5 of
     model name and prompt), the identity tokens of the face, the
@@ -180,8 +200,7 @@ def _real_stage1_guidance(cfg, dirs, device: str):
         device=device)
     img_enc = pl.load_image_encoder(g_cfg["image_encoder_faceid_path"],
                                     device)
-    (pos_e, pos_face), (irr_e, irr_face) = pl.face_identity(
-        g_cfg["pil_image_faceid_path"], g_cfg["irr_pil_image_path"])
+    (pos_e, pos_face), (irr_e, irr_face) = _face_identity(g_cfg, group)
     proj = pl.load_ip_adapter_proj(g_cfg["ip_ckpt_faceid_v2_path"],
                                    device=device)
     t = lambda a: torch.as_tensor(a, device=device)
@@ -198,7 +217,7 @@ def _real_stage1_guidance(cfg, dirs, device: str):
         grad_clip_threshold=float(g_cfg.get("grad_clip_threshold", 1.0))))
 
 
-def _real_refine_inputs(cfg, device: str):
+def _real_refine_inputs(cfg, device: str, group=None):
     """Stage 2's models, text encoder and identity tokens from the
     released checkpoints: the positive face's tokens for the cond row, the
     zero face's for the uncond row (ProjPlusModel at s_scale 0.5 with the
@@ -215,8 +234,7 @@ def _real_refine_inputs(cfg, device: str):
         g_cfg["pretrained_realistic_model_name_or_path"], device)
     img_enc = pl.load_image_encoder(g_cfg["image_encoder_faceid_path"],
                                     device)
-    (pos_e, pos_face), _ = pl.face_identity(g_cfg["pil_image_faceid_path"],
-                                            g_cfg["irr_pil_image_path"])
+    (pos_e, pos_face), _ = _face_identity(g_cfg, group)
     proj = pl.load_ip_adapter_proj(g_cfg["ip_ckpt_faceid_v2_path"],
                                    device=device)
     ip_cond, ip_uncond = refine_identity_tokens(
@@ -288,7 +306,7 @@ def run_stage1(cfg, dirs, args, group=None):
                                sys_cfg["prompt_processor"]["negative_prompt"],
                                dev)
     else:
-        guidance = _real_stage1_guidance(cfg, dirs, dev)
+        guidance = _real_stage1_guidance(cfg, dirs, dev, group)
 
     # 512^2 training renders: footprints fit a 4x4-tile budget (radii halve
     # vs 1024^2); eval/refine/stage3 use the default d_max=25
@@ -405,7 +423,8 @@ def run_stage2(cfg, dirs, args, group=None):
         images, control = resize(images), resize(control)
         ip_cond = ip_uncond = np.zeros((4, 32), np.float32)
     else:
-        models, enc, ip_cond, ip_uncond = _real_refine_inputs(cfg, dev)
+        models, enc, ip_cond, ip_uncond = _real_refine_inputs(cfg, dev,
+                                                              group)
     contexts = refine_contexts(enc, sys_cfg["prompt_processor"]["prompt"],
                                ip_cond, ip_uncond, dev)
 

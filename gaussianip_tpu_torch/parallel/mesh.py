@@ -67,40 +67,30 @@ def is_main(group) -> bool:
     return group is None or group.rank == 0
 
 
+def _walk(fn, tree, name=""):
+    """The tree rebuilt with fn(name, leaf) in place of every leaf that is
+    not a dict, list, tuple, NamedTuple or dataclass; name is the leaf's
+    path (".field", "[i]")."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, f"{name}.{k}") for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(fn, v, f"{name}.{k}")
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v, f"{name}[{i}]")
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _walk(fn, getattr(tree, f.name), f"{name}.{f.name}")
+            for f in dataclasses.fields(tree)})
+    return fn(name, tree)
+
+
 def tree_map(fn, tree):
     """fn on every tensor of a tree of dicts, lists, tuples, NamedTuples and
     dataclasses; other leaves are kept."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: tree_map(fn, getattr(tree, f.name))
-            for f in dataclasses.fields(tree)})
-    return tree
-
-
-def _leaves(tree, name=""):
-    """(name, leaf) for every tensor and int (bools included) of a tree."""
-    if isinstance(tree, (torch.Tensor, int)):
-        yield name, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{name}.{k}")
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for k, v in zip(tree._fields, tree):
-            yield from _leaves(v, f"{name}.{k}")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{name}[{i}]")
-    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            yield from _leaves(getattr(tree, f.name), f"{name}.{f.name}")
+    return _walk(lambda _, x: fn(x) if isinstance(x, torch.Tensor) else x,
+                 tree)
 
 
 def row_span(group, n: int) -> tuple[int, int]:
@@ -235,16 +225,22 @@ def state_digest(tree) -> tuple[list, torch.Tensor]:
     it is. Integer sums wrap the same in any order, so equal trees give
     equal digests on every rank."""
     names, vals, dev = [], [], None
-    for name, x in _leaves(tree):
-        names.append(name)
+
+    def add(name, x):
+        nonlocal dev
         if isinstance(x, torch.Tensor):
             dev = x.device
             b = x.detach().contiguous().reshape(-1)
             b = b.view(_BITS[b.element_size()]).to(torch.int64)
             w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+            names.append(name)
             vals.append((b * w).sum())
-        else:
+        elif isinstance(x, int):  # bools too
+            names.append(name)
             vals.append(torch.tensor(int(x), dtype=torch.int64))
+        return x
+
+    _walk(add, tree)
     return names, torch.stack([v.to(dev or "cpu") for v in vals])
 
 

@@ -28,8 +28,6 @@ def main(argv=None):
     parser.add_argument("--stub-guidance", action="store_true")
     parser.add_argument("--devices", default="auto",
                         help="data-parallel ranks, as launch's --devices")
-    parser.add_argument("--recipe_batch", action="store_true",
-                        help="as launch's --recipe_batch")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args, extras = parser.parse_known_args(argv)
     launch._check_args(args)

@@ -224,7 +224,8 @@ def face_identity(image_path: str, irr_image_path: str):
     random unit embedding seeded by the path and the image's float32 mean
     (numpy's, on the same array). Python salts the hash of a str per
     process, so the fallback's embedding is the same only within one
-    process, as in the JAX package. The PNGs are read by utils/saving.py;
+    process, as in the JAX package (launch gives every data-parallel rank
+    rank 0's). The PNGs are read by utils/saving.py;
     PIL is needed for the resize alone."""
     try:
         import cv2

@@ -118,3 +118,14 @@ def fail_on_rank1(group):
         raise ValueError("rank 1 fails on purpose")
     all_sum(group, torch.ones(1))
     return np.zeros(1)
+
+
+def face_identity(group, photo: str, irr: str):
+    """launch's face identity of two PNGs (rank 0's on every rank) and the
+    rank's own pipeline.face_identity."""
+    from gaussianip_tpu_torch import launch
+    from gaussianip_tpu_torch.system import pipeline as pl
+
+    g_cfg = {"pil_image_faceid_path": photo, "irr_pil_image_path": irr}
+    return {"launch": launch._face_identity(g_cfg, group),
+            "own": pl.face_identity(photo, irr)}

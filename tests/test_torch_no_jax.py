@@ -1,8 +1,9 @@
-"""The port stands alone: no module of gaussianip_tpu_torch/ and not
-chip_smoke.py imports jax, flax or the JAX package, nor the packages the
-JAX package's loaders lean on and the card's machine does not promise
-(transformers, safetensors, regex, ftfy). An AST scan (the test process
-itself has jax imported, so sys.modules proves nothing)."""
+"""The port stands alone: no module of gaussianip_tpu_torch/, not
+chip_smoke.py and not scripts/probe_torch_dp.py imports jax, flax or the
+JAX package, nor the packages the JAX package's loaders lean on and the
+card's machine does not promise (transformers, safetensors, regex,
+ftfy). An AST scan (the test process itself has jax imported, so
+sys.modules proves nothing)."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "gaussianip_tpu", "transformers",
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "probe_torch_dp.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "gaussianip_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -8,7 +8,8 @@ refine noise, as the single-process parity tests feed them.
 The port's ranks are 2 gloo processes on the CPU that one spawn starts for
 every case (tests/_torch_dp_ranks.py holds what they run); a second spawn
 shows that a rank that raises fails the spawn. Each rank's state is
-checked bit-equal to the other's inside the ranks (check_replicated).
+checked bit-equal to the other's inside the ranks (check_replicated). The
+same spawn holds that launch gives every rank rank 0's face identity.
 
 Tolerances. Against the port's single process after one step (f32, the
 same arithmetic with its sums reassociated over the ranks): losses to
@@ -26,6 +27,8 @@ test_torch_stage3.py; the loss to 1e-4 relative). The refined views: 1e-5
 against the single process (the dense groups' UNet batch halves), 1e-4
 against JAX, as tests/test_torch_refine.py.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -114,7 +117,7 @@ def _rank1_max_keys(sk, jts, jcam, count):
 
 
 @pytest.fixture(scope="module")
-def inputs():
+def inputs(tmp_path_factory):
     """Every case's inputs: the JAX side's objects and the cases the ranks
     run (numpy and torch objects only: the ranks import no JAX)."""
     from gaussianip_tpu.data.sampler import refine_orbit_batch as jorbit
@@ -220,6 +223,14 @@ def inputs():
     cases["refine"] = ("refine", (
         pr.RefineModels(*gr.models), t(imgs), t(ctrl),
         {k: t(v) for k, v in ctxs.items()}, t(rnoise).permute(2, 0, 1), 8))
+    # the face identity on insightface's fallback: two random PNGs
+    from gaussianip_tpu_torch.utils.saving import save_image
+
+    faces = []
+    for i in range(2):
+        faces.append(str(tmp_path_factory.mktemp("faces") / f"{i}.png"))
+        save_image(faces[-1], rng.uniform(0, 1, (48, 40, 3)))
+    cases["face_identity"] = ("face_identity", tuple(faces))
     out["cases"] = cases
     return out
 
@@ -462,3 +473,17 @@ def test_rank_that_raises_fails_spawn():
 
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         spawn(2, R.fail_on_rank1, timeout_s=60)
+
+
+def test_face_identity_is_rank_0s(inputs, ranks):
+    """Without insightface the face embedding is seeded by Python's str
+    hash, which each process salts anew (unless PYTHONHASHSEED is set):
+    launch gives every rank rank 0's embedding and crops."""
+    a, b = ranks[0]["face_identity"], ranks[1]["face_identity"]
+    flat = lambda faces: [x for pair in faces for x in pair]
+    for x, y, own in zip(flat(a["launch"]), flat(b["launch"]),
+                         flat(a["own"])):
+        np.testing.assert_array_equal(x, own)
+        np.testing.assert_array_equal(y, own)
+    if "PYTHONHASHSEED" not in os.environ:
+        assert not np.array_equal(a["own"][0][0], b["own"][0][0])
