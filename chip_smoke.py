@@ -53,16 +53,26 @@ directory (system/standin.py), every loaded tensor held against its
 source and the loaded stack's forward against the source stack's, the
 command line without --stub-guidance on that set (stage 1, stage 2 in
 full, stage 3 and the turntable, with each stage's launches, LPIPS loaded
-and the face-identity branch recorded) and eval_avatar. Last, data
+and the face-identity branch recorded) and eval_avatar. Then data
 parallel (dp): two gloo ranks on the card through parallel.spawn, each
 part held against the single process run in rank 0 on the same inputs
 (f32 stub-guided stage-1 steps with the batch's depth max in rank 1's
 views, guided stage-1 steps with a densify at 4 x 512^2, stage-3 steps at
 4 x 1024^2, the refine at 1024^2), the ranks' states checked equal and every
 kernel's launches counted per rank, then one stage-1 step in a
-world-size-1 NCCL group. Prints one line per phase, a `kernels` JSON line,
-the card's name and power limit, and as its last line {"ok": true,
-"device": {...}}. Any failed phase exits non-zero; there is no CPU path.
+world-size-1 NCCL group. The last three tools, each run as its user runs
+it, in a child process: `python -m gaussianip_tpu_torch.render_ply` on
+the final avatar's .ply at 1024^2 (render_ply, after the turntable), its
+PNG equal to the in-process render's with one K1 launch; `python -m
+gaussianip_tpu_torch.weight_parity compare` on cli:real's set against a
+float32 CPU recording of its source modules, passing it and failing a
+planted fault in a copy of the UNet file (weight_parity, inside
+cli:real); and, last, `python -m gaussianip_tpu_torch.bench_pipeline`
+with stage 3 cut to 110 of 800 steps (bench), its line printed with every
+key finite and each stage's launches counted. Prints one line per phase, a
+`kernels` JSON line, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Any failed phase exits non-zero; there is
+no CPU path.
 """
 
 from __future__ import annotations
@@ -313,6 +323,33 @@ DP_GUIDED_MIN = 1e-4
 DP_COUNT_RTOL = 1e-2
 DP_S3_RTOL = 1e-3
 DP_REFINE_TOL = 1e-6
+# the last three tools, each run as a user runs it, in a child process:
+# `python -m gaussianip_tpu_torch.bench_pipeline` (phase bench) with stage
+# 3 cut to BENCH_S3_STEPS of 800 (the densify after step index 100
+# included; PIPELINE_BENCH_TORCH.json holds an uncut run's line), every key
+# of BENCH_KEYS present and finite and each stage's launches as its
+# schedule makes them; `render_ply` (phase render_ply) on the final avatar
+# at 1024^2, its PNG equal to the in-process render's and one K1 launch;
+# `weight_parity compare` (phase weight_parity) on cli:real's set against a
+# recording of the set's source modules at float32 on the CPU (each tensor
+# rounded to its file's dtype), which must pass, then with
+# PLANTED_TENSOR moved by PLANTED_SHIFT in a copy of the UNet file, which
+# must fail unet_out and nothing else (the UNet's last conv, which no
+# GroupNorm follows: one before it takes out the part of a shift that is
+# constant over its group)
+BENCH_S3_STEPS = 110
+BENCH_KEYS = (
+    "stage1_first_step_s", "stage1_step_ms", "stage1_2400_steps_min",
+    "stage2_total_s_incl_compile", "stage2_wall_s", "stage3_wall_s",
+    "pipeline_total_min", "vs_reference_40min",
+    "splat_render_fwd_bwd_1024px_100k", "fwd_ms", "fwd_bwd_ms",
+    "n_live_instances", "train_step_render_512_b4_ms", "unet_denoise_ms",
+    "unet_denoise_steps_per_s", "pairs", "k1_ms", "k2_ms", "k1_bound_ms",
+    "k2_bound_ms", "k1_share_of_bound", "k2_share_of_bound")
+RENDER_PLY_VIEW = dict(azimuth=30.0, elevation=5.0, radius=1.8, fovy=70.0,
+                       bg=(0.1, 0.2, 0.3))
+PLANTED_TENSOR = "conv_out.weight"
+PLANTED_SHIFT = 0.1
 # tiled renderer vs the dense reference compositor on a small scene: worst
 # gradient |diff| relative to the field's largest |gradient| (the JAX
 # package's tiled compositor deviates from its dense oracle by 1.4e-3 on
@@ -2058,13 +2095,13 @@ def watch_calls(*targets):
         yield calls
 
 
-# stage 3 in a child process: the launch module run as `python -m` runs it
-# (runpy, run_name "__main__"), then the child's kernel launch counts
-STAGE3_CHILD = (
-    "import json, runpy\n"
+# a module in a child process, run as `python -m` runs it (runpy, run_name
+# "__main__"; the module's name is the first argument), then the child's
+# kernel launch counts
+MODULE_CHILD = (
+    "import json, runpy, sys\n"
     "import chip_smoke\n"
-    "runpy.run_module('gaussianip_tpu_torch.launch', run_name='__main__',"
-    " alter_sys=True)\n"
+    "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
     "print('launches=' + json.dumps({k: c.launches for k, c in "
     "chip_smoke.kernel_counters().items()}), flush=True)\n")
 
@@ -2296,18 +2333,10 @@ def cli_phase():
         refine_err = check_refine_reference(CLI_STUB_SIZE)
 
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", STAGE3_CHILD, *args, "--train",
-             "--stage", "stage3", "--max_steps", str(CLI_STEPS)],
-            cwd=repo, capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"cli stage3: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-3000:]}\n"
-                                 f"{proc.stderr[-3000:]}")
-        got = json.loads([ln for ln in proc.stdout.splitlines()
-                          if ln.startswith("launches=")][-1][9:])
+        out3, wall = child(["-c", MODULE_CHILD, "gaussianip_tpu_torch.launch",
+                            *args, "--train", "--stage", "stage3",
+                            "--max_steps", str(CLI_STEPS)], 900)
+        got = child_launches(out3)
         want("stage3", got, CLI_STEPS + CLI_TEST_FRAMES // 4, CLI_STEPS,
              False)
         out["stage3"] = got
@@ -2630,6 +2659,7 @@ def cli_real_phase():
                                3) for k, m in src.items()})
         cfg = load_config(config, *written["overrides"])
         info = check_real_loaders(src, written, cfg)
+        out_wp = weight_parity_phase(src, files, tmp)
         del src
         torch.cuda.empty_cache()
         for k, v in info.items():
@@ -2762,7 +2792,8 @@ def cli_real_phase():
             **{k: v for k, v in saved.items() if k != "ply"})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"launches": out, "loaders": info, "face_identity": face}
+    return {"launches": out, "loaders": info, "face_identity": face,
+            "weight_parity": out_wp}
 
 
 def rel_err(a, b) -> float:
@@ -3173,6 +3204,192 @@ def dp_phase(gs, sk, dev="cuda"):
     return totals
 
 
+def child(argv, timeout: int):
+    """A child process from the checkout's root; raises with its output
+    unless it exits 0. -> (its stdout, seconds)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=repo,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{argv[:3]}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def child_launches(stdout: str) -> dict:
+    """The launch counts that MODULE_CHILD prints last."""
+    return json.loads([ln for ln in stdout.splitlines()
+                       if ln.startswith("launches=")][-1][9:])
+
+
+def render_ply_phase(gs, tmp: str):
+    """`python -m gaussianip_tpu_torch.render_ply` on the final avatar's
+    .ply at 1024^2 in a child process (MODULE_CHILD) from RENDER_PLY_VIEW:
+    its two lines, one K1 launch, and its PNG equal to an in-process
+    render of the same camera on the card after the writer's 8-bit
+    conversion. -> the child's launches."""
+    import torch
+    from gaussianip_tpu_torch.model.ply import state_from_ply, state_to_ply
+    from gaussianip_tpu_torch.render.render import RenderConfig, render
+    from gaussianip_tpu_torch.render_ply import orbit_camera
+    from gaussianip_tpu_torch.utils.saving import read_png, save_image
+
+    v = RENDER_PLY_VIEW
+    ply = os.path.join(tmp, "final.ply")
+    png, here = os.path.join(tmp, "child.png"), os.path.join(tmp, "here.png")
+    state_to_ply(gs, ply)
+    out, wall = child(["-c", MODULE_CHILD, "gaussianip_tpu_torch.render_ply",
+                       "--ply", ply, "--azimuth", str(v["azimuth"]),
+                       "--elevation", str(v["elevation"]), "--radius",
+                       str(v["radius"]), "--fovy", str(v["fovy"]), "--size",
+                       str(HIRES), "--bg", *map(str, v["bg"]), "--out", png],
+                      300)
+    launches = child_launches(out)
+    g = state_from_ply(ply, device="cuda")
+    with torch.no_grad():
+        ref = render(g, orbit_camera(v["azimuth"], v["elevation"],
+                                     v["radius"], v["fovy"], HIRES, "cuda"),
+                     torch.tensor(v["bg"], device="cuda"), RenderConfig())
+    save_image(here, ref.rgb[0].cpu().numpy())
+    got, want = read_png(png), read_png(here)
+    lines = out.strip().splitlines()[:2]
+    expect = [f"loaded {g.n_active} gaussians (sh degree {g.max_sh_degree}) "
+              f"from {ply}", f"wrote {png} (alpha coverage "
+              f"{float(ref.alpha.mean()):.3f})"]
+    if lines != expect:
+        raise AssertionError(f"render_ply: printed {lines}, want {expect}")
+    if got.shape != (HIRES, HIRES, 3) or not np.array_equal(got, want):
+        raise AssertionError(
+            f"render_ply: PNG {got.shape} differs from the in-process render "
+            f"at {int((got != want).any(axis=-1).sum())} pixels")
+    want_l = {"fwd": 1, "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
+              "conv3x3_general": 0}
+    if launches != want_l:
+        raise AssertionError(f"render_ply: launches {launches} != {want_l}")
+    log("render_ply", res=HIRES, n_active=g.n_active, wall_s=round(wall, 3),
+        alpha_coverage=float(ref.alpha.mean()), png_equal=True,
+        launches=launches)
+    return launches
+
+
+def compare_lines(stdout: str) -> dict:
+    """{output key: "OK" or "FAIL"} of weight_parity compare's lines."""
+    return {ln.split(":")[0]: ln.rsplit(" ", 1)[1]
+            for ln in stdout.splitlines()
+            if "max_abs_err=" in ln}
+
+
+def weight_parity_phase(src, files: dict, tmp: str):
+    """`python -m gaussianip_tpu_torch.weight_parity compare` on the
+    released-layout set at the published widths (cli:real's), in child
+    processes. The recording: the set's source modules (UNet with the
+    IP-Adapter's LoRA and IP projections, ControlNet, VAE), each tensor
+    rounded to its file's dtype, at float32 on the CPU on fixed_inputs().
+    compare must pass it (exit 0, every output OK; K3 runs the UNet's and
+    ControlNet's 67 stride-1 3x3 convs), then fail (exit 1) with
+    PLANTED_TENSOR moved by PLANTED_SHIFT in a copy of the UNet file,
+    naming unet_out and nothing else. -> compare's launches."""
+    import torch
+    from dataclasses import replace
+
+    from gaussianip_tpu_torch import weight_parity as wp
+    from gaussianip_tpu_torch.diffusion.weights import read_safetensors
+    from gaussianip_tpu_torch.system.standin import (FILE_DTYPES,
+                                                     write_safetensors)
+
+    t0 = time.perf_counter()
+    cpu = {}
+    for name in ("unet", "vae", "controlnet"):
+        m = src[name]
+        with torch.device("meta"):
+            cpu[name] = m.__class__(replace(m.cfg, dtype=torch.float32))
+        cpu[name].load_state_dict(rounded(m, FILE_DTYPES[name]),
+                                  assign=True)
+    x = wp.fixed_inputs()
+    ref = {**x, **wp.outputs(x, **{k: m.eval() for k, m in cpu.items()})}
+    del cpu
+    path = os.path.join(tmp, "weight_parity_ref.npz")
+    np.savez(path, **ref)
+    record_s = time.perf_counter() - t0
+    argv = ["-m", "gaussianip_tpu_torch.weight_parity", "compare", "--ref",
+            path, "--unet", files["unet"], "--ipa", files["ip_adapter"],
+            "--vae", files["vae"], "--controlnet", files["controlnet"]]
+    out, wall = child(argv, 600)
+    checks = compare_lines(out)
+    keys = sorted(k for k in ref if k not in x)
+    if sorted(checks) != keys or set(checks.values()) != {"OK"}:
+        raise AssertionError(f"weight_parity: {checks}\n{out}")
+    launches = json.loads(out.strip().splitlines()[-1].split(" ", 1)[1])
+    if launches != {"K1": 0, "K2": 0, "K3": K3_SITES}:
+        raise AssertionError(f"weight_parity: launches {launches}")
+    errs = {ln.split(":")[0]: ln.split("=", 1)[1].rsplit(" ", 1)[0]
+            for ln in out.splitlines() if "max_abs_err=" in ln}
+
+    sd, _ = read_safetensors(files["unet"])
+    sd[PLANTED_TENSOR] = sd[PLANTED_TENSOR] + PLANTED_SHIFT
+    bad = os.path.join(tmp, "planted_unet.safetensors")
+    write_safetensors(bad, sd)
+    del sd
+    argv[argv.index(files["unet"])] = bad
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, *argv], cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    planted = compare_lines(proc.stdout)
+    if proc.returncode != 1 or planted.get("unet_out") != "FAIL" or any(
+            v != "OK" for k, v in planted.items() if k != "unet_out"):
+        raise AssertionError(f"weight_parity planted: exit "
+                             f"{proc.returncode}, {planted}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    log("weight_parity", record_cpu_f32_s=round(record_s, 3),
+        compare_s=round(wall, 3), max_abs_err=errs, launches=launches,
+        planted=f"{PLANTED_TENSOR} + {PLANTED_SHIFT}: exit 1, unet_out "
+                f"FAIL, the rest OK")
+    return launches
+
+
+def bench_phase(tmp: str):
+    """`python -m gaussianip_tpu_torch.bench_pipeline` in a child process,
+    stage 3 cut to BENCH_S3_STEPS (its line goes to a temporary file):
+    every key of BENCH_KEYS present and finite, the card's name in it, and
+    each stage's launches as its schedule makes them (stage 1: a K1, a K2
+    and K3_SITES K3 a step; stage 2: K3_SITES a denoise call; stage 3: a K1
+    and a K2 a step; the denoise: K3_SITES a call; K3 all on the Hopper
+    variant). Prints the line. -> {stage: launches}."""
+    import torch
+    from gaussianip_tpu_torch import bench_pipeline as bp
+
+    out, wall = child(["-m", "gaussianip_tpu_torch.bench_pipeline", "123",
+                       "--stage3-steps", str(BENCH_S3_STEPS), "--out",
+                       os.path.join(tmp, "bench.json")], 900)
+    line = json.loads(out.strip().splitlines()[-1])
+    print(json.dumps(line), flush=True)
+    bad = [k for k in BENCH_KEYS if not isinstance(line.get(k), (int, float))
+           or not np.isfinite(line[k])]
+    if bad or line["device"]["kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench: keys {bad}, device {line['device']}")
+    s1 = 1 + bp.STAGE1_WARMUP + bp.STAGE1_TIMED
+    calls = 2 * REFINE_STEPS * REFINE_CALLS_PER_STEP
+    denoise = 2 + bp.TIMED_CALLS
+    want = {"stage1": (s1, s1, K3_SITES * s1),
+            "stage2": (0, 0, K3_SITES * calls),
+            "stage3": (BENCH_S3_STEPS, BENCH_S3_STEPS, 0),
+            "denoise": (0, 0, K3_SITES * denoise)}
+    launches = {k: line[f"launches_{k}"] for k in (*want, "render")}
+    for k, (k1, k2, k3) in want.items():
+        got = launches[k]
+        if (got["K1"], got["K2"], got["K3"], got["K3_hopper"]) != (
+                k1, k2, k3, k3):
+            raise AssertionError(f"bench {k}: launches {got}, want K1 {k1} "
+                                 f"K2 {k2} K3 {k3} (all Hopper)")
+    r = launches["render"]
+    if not (r["K1"] > 0 and r["K2"] > 0 and r["K3"] == 0):
+        raise AssertionError(f"bench render: launches {r}")
+    log("bench", wall_s=round(wall, 3), cut=line["cut"],
+        stage3_steps=line["stage3_steps"])
+    return launches
+
+
 def kernel_bound(info, kind_, ops="ops"):
     """(bound ms, "bytes" or "operations") of K1 ("fwd") or K2 ("bwd") from
     check_kernels' counts."""
@@ -3334,6 +3551,8 @@ def main() -> int:
         "stage3", timing=True)
     ts3, launches_3, _ = stage3_phase(g2, orbit, targets, gen)
     launches_t = turntable_phase(ts3.gaussians)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_rp = render_ply_phase(ts3.gaussians, tmp)
 
     # 8. animation of the final avatar: the command line at 1024^2, K1/K2
     # against their plain versions on its last re-posed frame, the bind at
@@ -3383,7 +3602,13 @@ def main() -> int:
     # the refine against the single process, and one NCCL rank
     launches_dp = dp_phase(gs0, sk)
 
-    # 12. kernels line: K1/K2 timed at the stub-guided path's shapes, at
+    # 12. the benchmark: python -m gaussianip_tpu_torch.bench_pipeline, its
+    # stage 3 cut
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_b = bench_phase(tmp)
+
+    # 13. kernels line: K1/K2 timed at the stub-guided path's shapes, at
     # stage 3's and at photo reconstruction's (K1 also at an animation
     # frame's), launches on the guided
     # path and per path (launches_by_path; "cli": per stage of the command
@@ -3395,7 +3620,10 @@ def main() -> int:
                "stage3": launches_3, "turntable": launches_t,
                "animation": launches_a, "anim_refine": launches_ar,
                "photo_recon": launches_p, "export": launches_x,
-               "viewer": launches_v}
+               "viewer": launches_v, "render_ply": launches_rp}
+    tool = {"fwd": "K1", "bwd": "K2", "conv3x3": "K3"}  # the tools' names
+    bench_launches = lambda k: {stage: v[tool[k]]
+                                for stage, v in launches_b.items()}
     cli_launches = lambda k: {stage: v[k]
                               for stage, v in launches_cli.items()}
     real_launches = lambda k: {stage: v[k]
@@ -3418,7 +3646,8 @@ def main() -> int:
                 **{k: v[kind_] for k, v in by_path.items()},
                 "cli": cli_launches(kind_),
                 "cli:real": real_launches(kind_),
-                "dp": dp_launches(kind_)},
+                "dp": dp_launches(kind_), "bench": bench_launches(kind_),
+                "weight_parity": real["weight_parity"][tool[kind_]]},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -3450,7 +3679,9 @@ def main() -> int:
             **{k: v["conv3x3"] for k, v in by_path.items()},
             "cli": cli_launches("conv3x3"),
             "cli:real": real_launches("conv3x3"),
-            "dp": dp_launches("conv3x3")},
+            "dp": dp_launches("conv3x3"),
+            "bench": bench_launches("conv3x3"),
+            "weight_parity": real["weight_parity"]["K3"]},
         "launches_by_variant": {
             "hopper": launches_g["conv3x3_hopper"],
             "general": launches_g["conv3x3_general"]},
