@@ -1,0 +1,173 @@
+"""Frozen copy of gaussianip_tpu_torch/guidance/ipa.py, plain PyTorch.
+
+The AHDS / ANPG diffusion guidance of stage 1 (port of
+gaussianip_tpu/guidance/ipa.py).
+
+One call: VAE-encode the rendered views (with autograd), draw the
+AHDS-windowed timesteps, run ControlNet + UNet once on the 3-way CFG batch
+[pos, neg, null] x B under torch.no_grad() (the UNet is a frozen scorer),
+form the ANPG gradient and return the SDS-shaped loss whose latent
+gradient is that gradient; the gradient reaches rgb only through the VAE
+encode. The random draws come from `sample_noise`, in a dict the caller
+passes back.
+
+The conditioning is the 77 text tokens of the view's prompt with the 4
+identity tokens of ProjPlusModel appended (81 tokens), for both the UNet
+(which splits the identity tokens off to its IP projections) and the
+ControlNet (which attends over all 81).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from ..diffusion.scheduler import DDIMSchedule, add_noise, make_ddim_schedule
+from ..ops.resize import linear_resize
+from .ahds import (
+    AHDSSchedule,
+    anpg_grad,
+    make_ahds_schedule,
+    sample_timesteps,
+    sds_grad,
+    sds_loss,
+)
+from .prompts import PromptEmbeddings
+
+
+@dataclass(frozen=True)
+class GuidanceConfig:
+    guidance_scale: float = 7.5
+    guidance_rescale: float = 0.75
+    ipa_scale: float = 0.5  # ipa_faceid_scale (configs/exp.yaml)
+    weighting_strategy: str = "sds"
+    use_anpg: bool = True
+    use_pose_controlnet: bool = True
+    view_dependent_prompting: bool = True
+    grad_clip_pixel: bool = True
+    grad_clip_threshold: float = 1.0
+    head_offset: float = 0.65
+    # the latents' side is image_size over the VAE's downscale
+    image_size: int = 512
+
+
+class ImageEmbeds(NamedTuple):
+    pos: torch.Tensor  # [1, T_ip, D]
+    null: torch.Tensor
+    neg: torch.Tensor
+
+
+class GuidanceModels(NamedTuple):
+    unet: nn.Module
+    controlnet: nn.Module
+    vae: nn.Module
+
+
+class AHDSGuidance:
+    """Guidance for system/stage1.make_train_step. The models are frozen:
+    their parameters take no gradient."""
+
+    def __init__(self, models: GuidanceModels,
+                 prompt_embeds: PromptEmbeddings,
+                 image_embeds: Optional[ImageEmbeds],
+                 cfg: GuidanceConfig = GuidanceConfig(),
+                 ddim: Optional[DDIMSchedule] = None,
+                 ahds: Optional[AHDSSchedule] = None):
+        for m in models:
+            m.requires_grad_(False)
+        self.models = models
+        self.prompt_embeds = prompt_embeds
+        self.image_embeds = image_embeds
+        self.cfg = cfg
+        dev = next(models.unet.parameters()).device
+        self.ddim = ddim or make_ddim_schedule(device=dev)
+        self.ahds = ahds or make_ahds_schedule()
+
+    def latent_shape(self, batch_size: int) -> tuple:
+        vcfg = self.models.vae.cfg
+        s = self.cfg.image_size // vcfg.downscale
+        return (batch_size, vcfg.latent_channels, s, s)
+
+    def sample_noise(self, generator: torch.Generator, shape, device):
+        """The step's draws from `generator`, in this order: "u" [B] int in
+        [0, 2**30) (the timestep draw), "noise" (the forward-diffusion
+        noise) and "eps" (the VAE posterior's), both latent-shaped. `shape`
+        is the render's [B, H, W, 3]."""
+        b = shape[0]
+        u = torch.randint(0, 1 << 30, (b,), generator=generator,
+                          device=device)
+        lat = self.latent_shape(b)
+        noise = torch.randn(lat, generator=generator, device=device)
+        eps = torch.randn(lat, generator=generator, device=device)
+        return {"u": u, "noise": noise, "eps": eps}
+
+    def _context(self, view_aux, batch_size: int):
+        """[3B, S (+ T_ip), D] stacked (pos, neg, null) conditioning."""
+        text = self.prompt_embeds.get_text_embeddings(
+            view_aux["elevation"], view_aux["azimuth"], view_aux["center"],
+            view_aux["all_vis"], view_aux["camera_distances"],
+            view_dependent=self.cfg.view_dependent_prompting,
+            head_offset=self.cfg.head_offset)
+        if self.image_embeds is None:
+            return text
+        e = self.image_embeds
+        rep = lambda x: x.expand(batch_size, -1, -1)
+        img = torch.cat([rep(e.pos), rep(e.neg), rep(e.null)], dim=0)
+        return torch.cat([text, img.to(text.dtype)], dim=1)
+
+    def encode_images(self, rgb_bhwc, eps):
+        """[B, H, W, 3] in [0, 1] -> scaled float32 latents [B, 4, h, w]."""
+        size = self.cfg.image_size
+        x = linear_resize(rgb_bhwc.permute(0, 3, 1, 2), size, size)
+        return self.models.vae.encode(x * 2.0 - 1.0, eps).float()
+
+    def predict_noise(self, latents_noisy, control, t, context):
+        """One ControlNet + UNet pass on an already-expanded batch."""
+        m = self.models
+        down_res, mid = None, None
+        if self.cfg.use_pose_controlnet:
+            down_res, mid = m.controlnet(latents_noisy, t, context, control,
+                                         conditioning_scale=1.0)
+        return m.unet(latents_noisy, t, context,
+                      down_block_residuals=down_res,
+                      mid_block_residual=mid,
+                      ip_scale=self.cfg.ipa_scale).float()
+
+    def __call__(self, step: int, draws, rgb, control_img, view_aux):
+        cfg = self.cfg
+        b = rgb.shape[0]
+        latents = self.encode_images(rgb, draws["eps"])
+        t = sample_timesteps(self.ahds, draws["u"], step)
+        size = cfg.image_size
+        with torch.no_grad():
+            control = linear_resize(control_img.permute(0, 3, 1, 2), size,
+                                    size)
+            latents_noisy = add_noise(self.ddim, latents.detach(),
+                                      draws["noise"], t)
+            n_way = 3 if cfg.use_anpg else 2
+            context = self._context(view_aux, b)[:n_way * b]
+            pred = self.predict_noise(
+                torch.cat([latents_noisy] * n_way), torch.cat([control]
+                                                              * n_way),
+                torch.cat([t] * n_way), context)
+            ac = self.ddim.alphas_cumprod
+            if cfg.use_anpg:
+                e_pos, e_neg, e_null = pred.chunk(3)
+                grad = anpg_grad(e_neg, e_pos, e_null, t, ac,
+                                 cfg.guidance_scale, cfg.weighting_strategy,
+                                 cfg.grad_clip_pixel,
+                                 cfg.grad_clip_threshold)
+            else:
+                e_pos, e_neg = pred.chunk(2)
+                grad = sds_grad(e_neg, e_pos, draws["noise"], t, ac,
+                                cfg.guidance_scale, cfg.weighting_strategy,
+                                cfg.guidance_rescale)
+        return {
+            "loss_sds": sds_loss(latents, grad,
+                                 view_aux.get("batch_size", b)),
+            "grad_norm": torch.linalg.vector_norm(grad),
+            "t_mean": t.float().mean(),
+        }
