@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from ..diffusion.scheduler import DDIMSchedule, add_noise, make_ddim_schedule
 from ..ops.resize import linear_resize
+from ..utils.profiling import span
 from .ahds import (
     AHDSSchedule,
     anpg_grad,
@@ -137,10 +138,11 @@ class AHDSGuidance:
     def __call__(self, step: int, draws, rgb, control_img, view_aux):
         cfg = self.cfg
         b = rgb.shape[0]
-        latents = self.encode_images(rgb, draws["eps"])
+        with span("vae_encode"):
+            latents = self.encode_images(rgb, draws["eps"])
         t = sample_timesteps(self.ahds, draws["u"], step)
         size = cfg.image_size
-        with torch.no_grad():
+        with torch.no_grad(), span("denoise"):
             control = linear_resize(control_img.permute(0, 3, 1, 2), size,
                                     size)
             latents_noisy = add_noise(self.ddim, latents.detach(),

@@ -47,6 +47,7 @@ from ..model.gaussians import PARAM_FIELDS, GaussianState, state_from_numpy
 from ..parallel.mesh import (all_max, all_sum, all_sum_many, global_max,
                              local_rows, world_size)
 from ..render.render import RenderConfig, render
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -154,8 +155,9 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
                   for f in PARAM_FIELDS}
         offset = torch.zeros((batch.c2w.shape[0], g.capacity, 2),
                              device=dev, requires_grad=True)
-        out = render(g.replace(**leaves), cams, bg, render_cfg,
-                     mean2d_offset=offset)
+        with span("render"):
+            out = render(g.replace(**leaves), cams, bg, render_cfg,
+                         mean2d_offset=offset)
         gout = guidance(ts.step, draws, out.rgb, pose_images, {
             "all_vis": all_vis,
             "elevation": batch.elevation_deg,
@@ -173,10 +175,12 @@ def make_inner_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
             loss_opaque = -(nd * torch.log(nd)
                             + (1 - nd) * torch.log(1 - nd)).mean() * share
             loss = loss + loss_opaque * cfg.lambda_opaque
-        grads = torch.autograd.grad(
-            loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
+        with span("backward", split=(out.rgb, "vae_encode.backward",
+                                     "render.backward")):
+            grads = torch.autograd.grad(
+                loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
 
-        with torch.no_grad():
+        with torch.no_grad(), span("adam"):
             # the views' gradients: summed over the ranks, the offset's
             # over the views first (add_stats takes the norm of the sum)
             grads = all_sum_many(group, list(grads[:-1])
@@ -238,9 +242,10 @@ def make_train_step(cfg: Stage1Config, cam_cfg: CameraSamplerConfig,
 
     def step(ts: TrainState, generator: torch.Generator):
         dev = ts.gaussians.device
-        batch = sample_train_batch(cam_cfg, generator, ts.step, dev)
-        draws = guidance.sample_noise(generator, shape, dev)
-        return inner(ts, batch, draws)
+        with span("stage1.step", step=ts.step, device=dev):
+            batch = sample_train_batch(cam_cfg, generator, ts.step, dev)
+            draws = guidance.sample_noise(generator, shape, dev)
+            return inner(ts, batch, draws)
 
     return step
 

@@ -34,6 +34,7 @@ from ..ops.resize import linear_resize
 from ..parallel.mesh import (all_max, all_sum, all_sum_many, local_rows,
                              world_size)
 from ..render.render import RenderConfig, render
+from ..utils.profiling import span
 from .refine import CROP_X, CROP_Y, RENDER_BATCH
 from .stage1 import TrainState, check_divides
 
@@ -86,44 +87,49 @@ def make_stage3_step(cfg: Stage3Config, render_cfg: RenderConfig,
     check_divides(cfg.train_bs, group, "stage-3 view batch")
 
     def step(ts: TrainState, ids):
-        share = 1.0 / world_size(group)  # the rank's share of the views
-        ids = local_rows(group, ids)
-        g = ts.gaussians
-        dev = g.device
-        bg = torch.full((3,), 1.0 if cfg.bg_white else 0.0, device=dev)
-        cams = camera_from_c2w(orbit.c2w[ids], orbit.fovy[ids], h, w)
-        tgt = refined_targets[ids]
-        leaves = {f: getattr(g, f).detach().requires_grad_(True)
-                  for f in PARAM_FIELDS}
-        offset = torch.zeros((ids.shape[0], g.capacity, 2), device=dev,
-                             requires_grad=True)
-        out = render(g.replace(**leaves), cams, bg, render_cfg,
-                     mean2d_offset=offset)
-        crop = out.rgb[:, cy[0]:cy[1], cx[0]:cx[1], :]
-        small = linear_resize(crop.permute(0, 3, 1, 2), th,
-                              tw).permute(0, 2, 3, 1)
-        l1 = (small - tgt).abs().mean() * share
-        loss = cfg.lambda_l1 * l1
-        lp = torch.zeros((), device=dev)
-        if lpips_fn is not None:
-            lp = lpips_fn(small, tgt).mean() * share
-            loss = loss + cfg.lambda_lpips * lp
-        grads = torch.autograd.grad(
-            loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
-        with torch.no_grad():
-            grads = all_sum_many(group, list(grads[:-1])
-                                 + [grads[-1].sum(dim=0)])
-            radii = all_max(group, out.radii.amax(dim=0))
-            stats = add_stats(ts.stats, grads[-1], radii,
-                              all_max(group, (out.radii > 0).any(dim=0)))
-            new_g, new_opt = adam_step(
-                g, dict(zip(PARAM_FIELDS, grads[:-1])), ts.opt, adam_hyper,
-                ts.step + cfg.refine_start_step)
-            m = torch.stack([loss, l1, lp]).detach()
-            loss, l1, lp = all_sum(group, m)
-        metrics = {"loss": loss, "l1": l1, "lpips": lp,
-                   "n_active": new_g.n_active}
-        return TrainState(new_g, new_opt, stats, ts.step + 1), metrics
+        with span("stage3.step", step=ts.step, device=ts.gaussians.device):
+            share = 1.0 / world_size(group)  # the rank's share of the views
+            ids = local_rows(group, ids)
+            g = ts.gaussians
+            dev = g.device
+            bg = torch.full((3,), 1.0 if cfg.bg_white else 0.0, device=dev)
+            cams = camera_from_c2w(orbit.c2w[ids], orbit.fovy[ids], h, w)
+            tgt = refined_targets[ids]
+            leaves = {f: getattr(g, f).detach().requires_grad_(True)
+                      for f in PARAM_FIELDS}
+            offset = torch.zeros((ids.shape[0], g.capacity, 2), device=dev,
+                                 requires_grad=True)
+            with span("render"):
+                out = render(g.replace(**leaves), cams, bg, render_cfg,
+                             mean2d_offset=offset)
+            with span("loss"):
+                crop = out.rgb[:, cy[0]:cy[1], cx[0]:cx[1], :]
+                small = linear_resize(crop.permute(0, 3, 1, 2), th,
+                                      tw).permute(0, 2, 3, 1)
+                l1 = (small - tgt).abs().mean() * share
+                loss = cfg.lambda_l1 * l1
+                lp = torch.zeros((), device=dev)
+                if lpips_fn is not None:
+                    lp = lpips_fn(small, tgt).mean() * share
+                    loss = loss + cfg.lambda_lpips * lp
+            with span("backward", split=(out.rgb, "loss.backward",
+                                         "render.backward")):
+                grads = torch.autograd.grad(
+                    loss, [leaves[f] for f in PARAM_FIELDS] + [offset])
+            with torch.no_grad(), span("adam"):
+                grads = all_sum_many(group, list(grads[:-1])
+                                     + [grads[-1].sum(dim=0)])
+                radii = all_max(group, out.radii.amax(dim=0))
+                stats = add_stats(ts.stats, grads[-1], radii,
+                                  all_max(group, (out.radii > 0).any(dim=0)))
+                new_g, new_opt = adam_step(
+                    g, dict(zip(PARAM_FIELDS, grads[:-1])), ts.opt, adam_hyper,
+                    ts.step + cfg.refine_start_step)
+                m = torch.stack([loss, l1, lp]).detach()
+                loss, l1, lp = all_sum(group, m)
+            metrics = {"loss": loss, "l1": l1, "lpips": lp,
+                       "n_active": new_g.n_active}
+            return TrainState(new_g, new_opt, stats, ts.step + 1), metrics
 
     return step
 

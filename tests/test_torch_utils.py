@@ -1,8 +1,8 @@
 """The port's utilities, registry and CLI repairs against the JAX package on
 the same inputs: the config loader and its YAML reader (against PyYAML),
 save_config, C() schedules, the PNG writer and reader (against PIL and the
-native writer), save_video, psnr / ssim / l1, the metrics CSV, Counters /
-StageTimer / trace, the component registry, the SMPL-X npz loader and
+native writer), save_video, psnr / ssim / l1, the metrics CSV, trace,
+the component registry, the SMPL-X npz loader and
 Skeleton on a synthetic file in the official layout; then the same loaders
 and writers with PyYAML, PIL, OpenCV and imageio unavailable (the port
 runs without any of them), the stub stack's refusal of float32 on a CUDA
@@ -263,23 +263,6 @@ def test_metrics_csv_matches_jax(tmp_path):
         lg.close()
         out.append(open(tmp_path / sub / "metrics.csv").read())
     assert out[0] == out[1]
-
-
-def test_counters_and_stage_timer(tmp_path):
-    """As tests/test_aux.py:test_profiling_utils."""
-    from gaussianip_tpu_torch.utils.profiling import Counters, StageTimer
-
-    c = Counters()
-    c.add("loss", 2.0)
-    c.add("loss", 4.0)
-    assert c.mean("loss") == 3.0
-    out = c.dump(str(tmp_path / "c.json"))
-    assert out["loss"]["n"] == 2
-    manifest = {}
-    timer = StageTimer(lambda **kw: manifest.update(kw))
-    with timer.stage("s1"):
-        pass
-    assert "wall_s_s1" in manifest
 
 
 def test_trace_writes_chrome_trace(tmp_path):
