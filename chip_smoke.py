@@ -4,7 +4,8 @@
 
 Builds the kernels from the checkout (gaussianip_tpu_torch/csrc/: K1 and
 K2, the compositor forward and backward with the per-gaussian gradient
-reduction fused in, in composite.cu; K3, the 3x3 conv, in conv3x3.cu),
+reduction fused in, in composite.cu; K3, the 3x3 conv, in conv3x3.cu;
+K4, the VAE's GroupNorm with the SiLU fused in, in groupnorm.cu),
 holds K1/K2 against their plain PyTorch versions at the stage-1 shapes (4
 cameras, 512x512, capacity 524288, d_max=16) and times them, prints the
 tiles' segment lengths, checks the tiled renderer against the
@@ -16,9 +17,12 @@ seeded random weights (system/pipeline.py:build_random_sd15_guidance),
 holds K3 against its plain version at every distinct conv shape of the
 guided step (batch 12, bf16) through the variant its gate names (the
 Hopper wgmma + TMA one at every SD1.5 shape) and times it beside the
-general variant and F.conv2d, and drives stage-1 training with the real
-AHDS / ANPG guidance; the tiny test stack on the card runs the general
-variant. Then, from the stub-trained, densified and pruned state, the rest
+general variant and F.conv2d, holds K4 against its plain version at
+every GroupNorm shape of the stage-1 encode (forward and backward) and of
+a refine chunk's encode and decode (forward) and times it beside its bound
+and F.group_norm + F.silu, and drives stage-1 training with the real
+AHDS / ANPG guidance (K4's launches counted: 22 GroupNorms a step); the
+tiny test stack on the card runs the general variant. Then, from the stub-trained, densified and pruned state, the rest
 of the avatar path: the .ply handoff and the 32 refine views at 1024^2,
 K3 against its plain version at every conv shape of a refine denoise call
 (128^2 latents, CFG batch 8), the largest attention on a fused backend,
@@ -108,6 +112,28 @@ K3_SITES = 67
 # rounds its output to bf16 (2^-8 relative), sums in another order: worst
 # |diff| within 1e-2 of the plain output's largest |value|
 K3_REL_TOL = 1e-2
+# K4 (the VAE's GroupNorm + SiLU) against its plain version on the same
+# inputs. Both sum the statistics in float32 in other orders (relative
+# ~1e-6), which flips the bf16 rounding of the pre-activation or the
+# output by one ulp (2^-8 relative) at ~1e-4 of the elements: relative L2
+# gap within K4_REL_TOL of the plain output and worst |diff| within
+# K4_WORST of its largest |value|. Float32 has no such flips (1e-5, 1e-4).
+# The statistics themselves, mean and rstd [B, G]: relative L2 1e-5
+K4_REL_TOL = {"bf16": 1e-3, "f32": 1e-5}
+K4_WORST = {"bf16": 2.0 ** -6, "f32": 1e-4}
+K4_STAT_TOL = 1e-5
+# dweight and dbias (the per-channel partials, asked for when the VAE's
+# weights train): sums of ~10^6 terms of both signs in other orders,
+# relative L2 gap 1e-3
+K4_WB_TOL = 1e-3
+K4_EPS = 1e-6
+# shapes outside the SD VAE's that K4 also runs on the card: the tiny test
+# stack's VAE (C / G = 2 and 4, a 16-byte vector spanning 4 and 2 groups)
+# in bf16, and the f32 path (weight_parity's VAE) at the stage-1 encode's
+# smallest shape; ((B, C, H, W), groups, silu, dtype)
+K4_EXTRA = (((4, 16, 64, 64), 8, True, "bf16"),
+            ((4, 32, 32, 32), 8, True, "bf16"),
+            ((4, 512, 64, 64), 32, True, "f32"))
 # the tiny guidance stack at bf16 on the card against float32 on the CPU,
 # worst |diff| over the largest |value|: bf16 rounding through the stack's
 # depth costs ~2% (the same comparison with bf16 on the CPU), a layout or
@@ -884,6 +910,178 @@ def check_k3(sites, gen, dev="cuda", tag: str = "k3"):
         bound_by=tot["bound_by"], dx_shape=f"{b}x{co}x{h}x{w}->{ci}",
         dx_variant=dx_variant, dx_max_abs_err=dx_err,
         dx_rel_err=dx_err / dx_scale)
+    return tot
+
+
+def k4_sites(vae, fn) -> dict:
+    """{((B, C, H, W), groups, silu): calls} of the VAE's GroupNorms
+    (VAEGroupNorm, K4) while fn() runs, from forward pre-hooks."""
+    import torch
+    from gaussianip_tpu_torch.diffusion.vae import VAEGroupNorm
+
+    seen, hooks = {}, []
+
+    def hook(mod, args):
+        key = (tuple(args[0].shape), mod.num_groups, mod.silu)
+        seen[key] = seen.get(key, 0) + 1
+
+    for m in vae.modules():
+        if isinstance(m, VAEGroupNorm):
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def check_k4(vae, gen, dev="cuda") -> dict:
+    """K4 against its plain version (ops/groupnorm_cuda.py) at every
+    distinct GroupNorm shape of the stage-1 encode (4 x 512^2, forward and
+    backward) and of a refine chunk's encode (2 x 1024^2) and decode (2
+    latents at 128^2, forward), then at K4_EXTRA, on N(0.5, 2^2) inputs,
+    weights 1 + N(0, 0.5^2) and biases N(0, 0.3^2); a rerun gives the same
+    bits (no atomics), and the backward asked for dweight and dbias too
+    gives the same dx. Each shape is timed as
+    K4, as the plain version (today's formula: group_norm + F.silu,
+    forward and autograd's backward) and as F.group_norm + F.silu (the
+    library yardstick), beside K4's bound: two passes each way at 3.35
+    TB/s (forward 3, backward 5 element sizes an element; `bound_once_ms`:
+    each input read once, 2 and 3). Returns the stage-1 step's and the
+    refine chunk's sums over their calls."""
+    import torch
+    import torch.nn.functional as F
+    from gaussianip_tpu_torch.diffusion.norm import group_norm
+    from gaussianip_tpu_torch.ops import groupnorm_cuda as k4
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cl = torch.channels_last
+    sites = []  # (tag, shape, groups, silu, dtype name, backward, calls)
+    for tag, backward, fn in (
+            ("stage1_encode", True, lambda: vae.encode(torch.zeros(
+                (BATCH, 3, RES, RES), device=dev))),
+            ("refine_encode", False, lambda: vae.encode(torch.zeros(
+                (2, 3, HIRES, HIRES), device=dev))),
+            ("refine_decode", False, lambda: vae.decode(torch.zeros(
+                (2, vae.cfg.latent_channels, HIRES // vae.cfg.downscale,
+                 HIRES // vae.cfg.downscale), device=dev)))):
+        for (shape, groups, silu), calls in sorted(k4_sites(vae,
+                                                            fn).items()):
+            sites.append((tag, shape, groups, silu, "bf16", backward, calls))
+    if sum(c for t, *_, c in sites if t == "stage1_encode") != 22:
+        raise AssertionError(f"k4: the stage-1 encode ran "
+                             f"{[s for s in sites if s[0] == 'stage1_encode']}"
+                             f", not 22 GroupNorms")
+    sites += [("extra", *e, True, 1) for e in K4_EXTRA]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp(min=1e-30))
+
+    tot = {}
+    for tag, shape, groups, silu, dt, backward, calls in sites:
+        dtype = dtypes[dt]
+        b, c, h, w = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(
+            dtype).contiguous(memory_format=cl)
+        weight = 1.0 + 0.5 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.3 * torch.randn(c, generator=gen, device=dev)
+        args = (weight, bias, groups, K4_EPS, silu)
+        y, mean, rstd = k4.groupnorm_fwd_cuda(x, *args)
+        py, pmean, prstd = k4.groupnorm_fwd_plain(x, *args)
+        errs = {"y": (y, py)}
+        if backward:
+            dy = torch.randn(shape, generator=gen, device=dev).to(
+                dtype).contiguous(memory_format=cl)
+            bwd_args = (weight, bias, mean, rstd, groups, silu, False)
+            dx = k4.groupnorm_bwd_cuda(dy, x, *bwd_args)[0]
+            pdx, pdw, pdb = k4.groupnorm_bwd_plain(
+                dy, x, weight, bias, pmean, prstd, groups, silu, True)
+            errs["dx"] = (dx, pdx)
+            wdx, dw, db = k4.groupnorm_bwd_cuda(dy, x, *bwd_args[:-1], True)
+            wb = {"dweight_rel": rel(dw, pdw), "dbias_rel": rel(db, pdb)}
+            if not torch.equal(wdx, dx) or max(wb.values()) > K4_WB_TOL:
+                raise AssertionError(f"k4 {tag} {shape}: with dweight and "
+                                     f"dbias: dx equal "
+                                     f"{torch.equal(wdx, dx)}, {wb}")
+            del wdx, dw, db, pdw, pdb
+        rerun = {"y": (k4.groupnorm_fwd_cuda(x, *args)[0], y)}
+        if backward:
+            rerun["dx"] = (k4.groupnorm_bwd_cuda(dy, x, *bwd_args)[0], dx)
+        if not all(torch.equal(a, b) for a, b in rerun.values()):
+            raise AssertionError(f"k4 {tag} {shape}: a rerun changed bits")
+        del rerun
+        torch.cuda.synchronize()
+        got = {"mean_rel": rel(mean, pmean), "rstd_rel": rel(rstd, prstd)}
+        if max(got.values()) > K4_STAT_TOL:
+            raise AssertionError(f"k4 {tag} {shape}: statistics {got}")
+        for name, (a, p) in errs.items():
+            got[f"{name}_rel"] = rel(a, p)
+            got[f"{name}_worst"] = float((a.float() - p.float()).abs().max()
+                                         / p.float().abs().max())
+            if not (got[f"{name}_rel"] <= K4_REL_TOL[dt]
+                    and got[f"{name}_worst"] <= K4_WORST[dt]):
+                raise AssertionError(f"k4 {tag} {shape} G={groups} "
+                                     f"silu={silu} {dt}: {name} {got}")
+        del y, py, errs
+        if backward:
+            del dx, pdx
+
+        def ref(t):
+            out = group_norm(t, weight, bias, groups, K4_EPS)
+            return F.silu(out) if silu else out
+
+        wl, bl = weight.to(dtype), bias.to(dtype)
+
+        def lib(t):
+            out = F.group_norm(t, groups, wl, bl, K4_EPS)
+            return F.silu(out) if silu else out
+
+        def fwd_bwd(f):
+            xg = x.detach().requires_grad_(True)
+            torch.autograd.grad(f(xg), xg, dy)
+
+        iters = max(3, min(50, int(4e8 // x.numel())))
+        n_el, size = x.numel(), x.element_size()
+        row = {"ms": cuda_ms(lambda: k4.groupnorm_fwd_cuda(x, *args), iters),
+               "bound_ms": 3 * n_el * size / PEAK_BYTES * 1e3,
+               "bound_once_ms": 2 * n_el * size / PEAK_BYTES * 1e3}
+        with torch.no_grad():
+            row["plain_ms"] = cuda_ms(lambda: ref(x), max(1, iters // 8))
+            row["library_ms"] = cuda_ms(lambda: lib(x), iters)
+        if backward:
+            row["bwd_ms"] = cuda_ms(
+                lambda: k4.groupnorm_bwd_cuda(dy, x, *bwd_args), iters)
+            row["bwd_bound_ms"] = 5 * n_el * size / PEAK_BYTES * 1e3
+            row["bwd_bound_once_ms"] = 3 * n_el * size / PEAK_BYTES * 1e3
+            row["bwd_plain_ms"] = cuda_ms(lambda: fwd_bwd(ref), max(
+                1, iters // 8)) - row["plain_ms"]
+            row["bwd_library_ms"] = cuda_ms(lambda: fwd_bwd(lib), iters) \
+                - row["library_ms"]
+        if backward:
+            got.update(wb)
+        log("k4", site=tag, shape=list(shape), groups=groups, silu=silu,
+            dtype=dt, calls=calls, **{k: round(v, 4) for k, v in row.items()},
+            share_of_bound=round(row["bound_ms"] / row["ms"], 4),
+            bwd_share_of_bound=round(row["bwd_bound_ms"] / row["bwd_ms"], 4)
+            if backward else None, **{k: float(f"{v:.3g}")
+                                      for k, v in got.items()})
+        acc = tot.setdefault(tag, {})
+        for k, v in row.items():
+            acc[k] = acc.get(k, 0.0) + calls * v
+        acc["launches"] = acc.get("launches", 0) + calls * (
+            k4.FWD_KERNELS + (k4.BWD_KERNELS if backward else 0))
+        del x, mean, rstd, pmean, prstd
+        torch.cuda.empty_cache()
+    tot.pop("extra")
+    for tag, acc in tot.items():
+        acc["share_of_bound"] = acc["bound_ms"] / acc["ms"]
+        if "bwd_ms" in acc:
+            acc["bwd_share_of_bound"] = acc["bwd_bound_ms"] / acc["bwd_ms"]
+        log("k4:" + tag, **{k: round(v, 4) for k, v in acc.items()})
     return tot
 
 
@@ -3430,9 +3628,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = _nvcc.build(["composite", "conv3x3"])
+    libs = _nvcc.build(["composite", "conv3x3", "groupnorm"])
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for name in ("composite", "conv3x3")
+    regs = [ln.strip() for name in ("composite", "conv3x3", "groupnorm")
             for ln in _nvcc.ptxas_log.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
@@ -3510,12 +3708,26 @@ def main() -> int:
         params_m={k: round(sum(p.numel() for p in m.parameters()) / 1e6, 3)
                   for k, m in guidance.models._asdict().items()})
     k3 = check_k3(conv_sites(guidance, gen, BATCH, RES, dev), gen, dev)
+    k4 = check_k4(guidance.models.vae, gen, dev)
+    from gaussianip_tpu_torch.ops import groupnorm_cuda
+    groupnorm_cuda.groupnorm_fwd_cuda.launches = 0
+    groupnorm_cuda.groupnorm_bwd_cuda.launches = 0
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
         GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
                         "conv3x3": K3_SITES * N_GUIDED,
                         "conv3x3_hopper": K3_SITES * N_GUIDED,
                         "conv3x3_general": 0})
+    k4_launches = {
+        "fwd": groupnorm_cuda.groupnorm_fwd_cuda.launches,
+        "bwd": groupnorm_cuda.groupnorm_bwd_cuda.launches}
+    k4_want = {"fwd": 22 * groupnorm_cuda.FWD_KERNELS * N_GUIDED,
+               "bwd": 22 * groupnorm_cuda.BWD_KERNELS * N_GUIDED}
+    if k4_launches != k4_want:
+        raise AssertionError(f"k4 launches over {N_GUIDED} guided steps: "
+                             f"{k4_launches} != {k4_want}")
+    log("k4:launches", steps=N_GUIDED, **k4_launches,
+        per_step=sum(k4_launches.values()) // N_GUIDED)
     layers = guided_layers(guidance, gen, BATCH, RES, dev)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
         rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
@@ -3708,6 +3920,20 @@ def main() -> int:
                                 f"views at {CLI_STUB_SIZE}^2, 1 step, bf16 "
                                 f"card vs f32 CPU",
                        "max_abs_err": cli["refine_err"]}}})
+    kernels.append({
+        "name": "K4 groupnorm (+ SiLU), fwd: stats + apply, bwd: stats + "
+                "apply", "route": "cuda",
+        "source": "gaussianip_tpu_torch/csrc/groupnorm.cu",
+        "replaces": None,
+        "per": "guided step (22 GroupNorms of the VAE encode, forward and "
+               "backward)",
+        **{k: round(v, 4) for k, v in k4["stage1_encode"].items()},
+        "launches": k4_launches,
+        "stage2_refine": {
+            "per": "refine chunk (encode of 2 views at 1024^2 and decode of "
+                   "2 latents at 128^2, forward)",
+            **{tag: {k: round(v, 4) for k, v in k4[tag].items()}
+               for tag in ("refine_encode", "refine_decode")}}})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

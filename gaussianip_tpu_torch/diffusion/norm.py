@@ -7,6 +7,12 @@ Statistics are sum(x) and sum(x^2) per (batch, group) in float32, as the
 JAX fast path computes them; the output has the input's dtype. Channels
 group consecutively (group = c // (C / G)). The reshapes run on the
 channels-last view, so a channels_last input stays one.
+
+The UNet's and the ControlNet's GroupNorms (blocks.py, unet.py) run this
+formula as eager ops: in the denoise the host's enqueue, not the bytes,
+sets the pace. The VAE's GroupNorms (vae.py) run the fused kernel K4
+(ops/groupnorm_cuda.py), GroupNorm and the SiLU after it in two passes
+each way, whose plain version on CPU tensors is this formula.
 """
 
 from __future__ import annotations
@@ -15,9 +21,9 @@ import torch
 import torch.nn as nn
 
 
-def group_norm(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
-    """x [B, C, ...]; weight, bias [C]. y = (x - mean_g) * rsqrt(var_g +
-    eps) * weight + bias, statistics over (spatial, channels in group)."""
+def group_norm_stats(x, weight, bias, groups: int, eps: float):
+    """`group_norm`'s output and its float32 statistics: (y, mean, rstd),
+    the statistics shaped [B, 1, G, 1]."""
     b, c = x.shape[:2]
     xh = x.float().movedim(1, -1)  # [B, ..., C]
     g = xh.reshape(b, -1, groups, c // groups)
@@ -25,7 +31,13 @@ def group_norm(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
     var = (g * g).mean(dim=(1, 3), keepdim=True) - mu * mu
     inv = torch.rsqrt(var.clamp(min=0.0) + eps)
     y = ((g - mu) * inv).reshape(xh.shape) * weight.float() + bias.float()
-    return y.to(x.dtype).movedim(-1, 1)
+    return y.to(x.dtype).movedim(-1, 1), mu, inv
+
+
+def group_norm(x, weight, bias, groups: int, eps: float) -> torch.Tensor:
+    """x [B, C, ...]; weight, bias [C]. y = (x - mean_g) * rsqrt(var_g +
+    eps) * weight + bias, statistics over (spatial, channels in group)."""
+    return group_norm_stats(x, weight, bias, groups, eps)[0]
 
 
 class GroupNorm(nn.Module):

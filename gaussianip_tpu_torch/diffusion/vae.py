@@ -5,6 +5,14 @@ Its convs are nn.Conv in the JAX package, not Conv3x3, so they stay
 F.conv2d here. GroupNorm epsilon is 1e-6 throughout; the encoder's
 stride-2 downsample pads ((0, 1), (0, 1)). `encode` takes the posterior
 noise as an argument.
+
+Every GroupNorm here is a `VAEGroupNorm`: the fused kernel K4
+(ops/groupnorm_cuda.py) on the card, with the SiLU that follows it fused
+in (the resnets' norm1 / norm2 and conv_norm_out) or not (the mid
+attention's group_norm). The VAE's tensors are large (4 x 128 x 512^2 in
+the stage-1 encode) and its GroupNorms are bound by bytes, which K4 cuts
+to two passes each way. The modules keep norm.GroupNorm's parameters and
+names.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch.nn.functional as F
 
 from .blocks import attend
 from .layers import Conv, Dense
+from ..ops.groupnorm_cuda import group_norm_silu
 from .norm import GroupNorm
 
 SD_VAE_SCALING = 0.18215
@@ -42,22 +51,34 @@ def tiny_vae_config(**kw) -> VAEConfig:
                              norm_groups=8), **kw)
 
 
+class VAEGroupNorm(GroupNorm):
+    """GroupNorm (eps 1e-6) on K4; with `silu`, the SiLU after it too."""
+
+    def __init__(self, channels: int, groups: int, silu: bool):
+        super().__init__(channels, groups, 1e-6)
+        self.silu = silu
+
+    def forward(self, x):
+        return group_norm_silu(x, self.weight, self.bias, self.num_groups,
+                               self.eps, self.silu)
+
+
 class VAEResnet(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int,
                  dtype):
         super().__init__()
-        self.norm1 = GroupNorm(in_channels, groups, 1e-6)
+        self.norm1 = VAEGroupNorm(in_channels, groups, silu=True)
         self.conv1 = Conv(in_channels, out_channels, 3, padding=1,
                           dtype=dtype)
-        self.norm2 = GroupNorm(out_channels, groups, 1e-6)
+        self.norm2 = VAEGroupNorm(out_channels, groups, silu=True)
         self.conv2 = Conv(out_channels, out_channels, 3, padding=1,
                           dtype=dtype)
         self.conv_shortcut = (Conv(in_channels, out_channels, 1, dtype=dtype)
                               if in_channels != out_channels else None)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -68,7 +89,7 @@ class VAEAttention(nn.Module):
 
     def __init__(self, channels: int, groups: int, dtype):
         super().__init__()
-        self.group_norm = GroupNorm(channels, groups, 1e-6)
+        self.group_norm = VAEGroupNorm(channels, groups, silu=False)
         self.to_q = Dense(channels, channels, dtype=dtype)
         self.to_k = Dense(channels, channels, dtype=dtype)
         self.to_v = Dense(channels, channels, dtype=dtype)
@@ -101,7 +122,7 @@ class Encoder(nn.Module):
         self.mid_res_0 = VAEResnet(chs[-1], chs[-1], g, dt)
         self.mid_attn = VAEAttention(chs[-1], g, dt)
         self.mid_res_1 = VAEResnet(chs[-1], chs[-1], g, dt)
-        self.conv_norm_out = GroupNorm(chs[-1], g, 1e-6)
+        self.conv_norm_out = VAEGroupNorm(chs[-1], g, silu=True)
         self.conv_out = Conv(chs[-1], 2 * cfg.latent_channels, 3, padding=1,
                              dtype=dt)
 
@@ -116,7 +137,7 @@ class Encoder(nn.Module):
             if bi < len(chs) - 1:
                 h = getattr(self, f"down_{bi}_downsample")(h)
         h = self.mid_res_1(self.mid_attn(self.mid_res_0(h)))
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -139,7 +160,7 @@ class Decoder(nn.Module):
             if bi < len(chs) - 1:
                 self.add_module(f"up_{bi}_upsample",
                                 Conv(ch, ch, 3, padding=1, dtype=dt))
-        self.conv_norm_out = GroupNorm(chs[-1], g, 1e-6)
+        self.conv_norm_out = VAEGroupNorm(chs[-1], g, silu=True)
         self.conv_out = Conv(chs[-1], 3, 3, padding=1, dtype=dt)
 
     def forward(self, z):
@@ -154,7 +175,7 @@ class Decoder(nn.Module):
             if bi < n - 1:
                 h = getattr(self, f"up_{bi}_upsample")(
                     F.interpolate(h, scale_factor=2.0, mode="nearest"))
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class AutoencoderKL(nn.Module):
