@@ -3,7 +3,7 @@
 state. A unit is one step: cameras and draws from the step generator, the
 render (K1 / K2), the VAE encode forward and backward, ControlNet + UNet on
 the 3-way CFG batch (K3), the ANPG loss and Adam. The window holds no
-densify or prune step (the recipe's first densify is at step 200).
+densify or prune step (the recipe's first densify is at step 500).
 
 Set-up builds the state from the seed's avatar, drives it through the
 workload's `check_steps` by the window's own call (the readings that the

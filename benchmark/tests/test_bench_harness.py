@@ -56,6 +56,36 @@ def test_every_cell_config_and_metric_loads_by_name():
         assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
 
 
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def test_every_cell_brings_its_test_files():
+    """Each cell's tiny sizes and limits, its configuration's tiny widths
+    and its entry's timed-path faults, as files found by name
+    (benchmark/tests/tiny.py)."""
+    missing = tiny.missing_files(CELLS)
+    assert not missing, "missing test files: " + ", ".join(
+        os.path.relpath(p, ROOT) for p in missing)
+
+
+@pytest.mark.parametrize("how", ["cell not listed", "no test files"])
+def test_a_cell_without_its_test_files_fails_naming_them(monkeypatch,
+                                                         tmp_path, how):
+    if how == "cell not listed":
+        monkeypatch.setattr(sys.modules[__name__], "CELLS",
+                            CELLS + ["stage1-unlisted-512"])
+        want = ["benchmark/tests/cells/stage1-unlisted-512.json"]
+    else:
+        monkeypatch.setattr(tiny, "TESTS", str(tmp_path))
+        want = ["cells/stage1-guided-512.json", "configs/gaussianip-sd15.json",
+                "timed_faults/stage1_step.py"]
+    assert tiny.fault_kinds("stage1-unlisted-512") == ()
+    with pytest.raises(AssertionError) as err:
+        test_every_cell_brings_its_test_files()
+    for name in want:
+        assert name in str(err.value), (name, str(err.value))
+
+
 def test_forbidden_modules_compare_top_level_names_whole(monkeypatch):
     mods = dict(sys.modules)
     for m in ("gaussianip_tpu_torch", "gaussianip_tpu_torch.ops",
@@ -137,7 +167,7 @@ def test_counts_hold_against_the_flop_counter_on_real_tensors():
     the reference's modules at tiny widths, and the K3 sites are the
     stride-1 3x3 convs: per resnet two, per upsampler one."""
     cfg = run.load_json(HERE, "configs", "gaussianip-sd15.json")
-    tiny.shrink(cfg, {"params": {}, "name": ""})
+    tiny.shrink_config(cfg)
     got = flops.denoise_call(cfg, 2, 8)
     pkg, unet, cn, vae = flops._meta_models(cfg)
     gen = torch.Generator().manual_seed(0)
@@ -172,9 +202,6 @@ def test_counts_hold_against_the_flop_counter_on_real_tensors():
     assert flops._counted(enc) == flops.vae_encode(cfg, 2, 16, True)
 
 
-CELLS = [w["name"] for w in BENCH["workloads"]]
-
-
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_sound_run_is_correct_and_reports_its_metrics(cell):
     line = _run(cell)
@@ -194,74 +221,12 @@ def test_a_traced_run_reads_the_trace():
     assert line["device"]["window_s"] > 0
 
 
-def _broken_stage1(monkeypatch, kind):
-    """The program's stage-1 step broken: its state handed back unchanged,
-    or half of the views left out and the loss a mean over the rest. The
-    reference's steps stay sound."""
-    from benchmark.entries import stage1_step
-
-    real = stage1_step._make_step
-
-    def make(pkg, cfg, p, guid, fault=None):
-        if not pkg.stage1.__name__.startswith(stack.PROGRAM + "."):
-            return real(pkg, cfg, p, guid, fault)
-        if kind == "half_batch":
-            return real(pkg, cfg, p, guid, "half_batch")
-        step = real(pkg, cfg, p, guid)
-        return lambda ts, gen: (ts, step(ts, gen)[1])
-
-    monkeypatch.setattr(stage1_step, "_make_step", make)
-
-
-def _broken_stage3(monkeypatch, kind):
-    """The program's stage-3 step broken in the same two ways."""
-    from benchmark.entries import stage3_step
-
-    real = stage3_step._setup
-
-    def setup(root, *a, **k):
-        out = list(real(root, *a, **k))
-        if root == stack.PROGRAM:
-            fn = out[2]
-            out[2] = ((lambda ts, v: (ts, fn(ts, v)[1])) if kind ==
-                      "unchanged" else
-                      (lambda ts, v: fn(ts, v[:v.shape[0] // 2])))
-        return tuple(out)
-
-    monkeypatch.setattr(stage3_step, "_setup", setup)
-
-
-def _broken_refine(monkeypatch, kind):
-    """The program's refine broken: the input views handed back
-    unrefined, or one compared view (the front anchor) mirrored where it
-    is produced."""
-    from gaussianip_tpu_torch.system import refine
-
-    real = refine.refine_views
-
-    def broken(models, images, *a, **k):
-        out = real(models, images, *a, **k)
-        if kind == "unchanged":
-            return images
-        out = out.clone()
-        i = refine.view_index("front")
-        out[i] = out[i].flip(1)
-        return out
-
-    monkeypatch.setattr(refine, "refine_views", broken)
-
-
-BROKEN = {"stage1-guided-512": (_broken_stage1, ["unchanged",
-                                                 "half_batch"]),
-          "stage3-recon-1024": (_broken_stage3, ["unchanged",
-                                                 "half_batch"]),
-          "stage2-vcr-1024": (_broken_refine, ["unchanged", "altered"])}
-
-
 @pytest.mark.parametrize("cell,kind", [(c, k) for c in CELLS
-                                       for k in BROKEN[c][1]])
+                                       for k in tiny.fault_kinds(c)])
 def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, kind):
-    BROKEN[cell][0](monkeypatch, kind)
+    """The program's timed path broken underneath by the faults of the
+    cell's entry (benchmark/tests/timed_faults/<entry>.py)."""
+    tiny.timed_faults(cell).break_timed(monkeypatch, kind)
     line = _run(cell, seed=SEED + 1)
     assert not line["correct"], line["compared"]
 
@@ -273,8 +238,8 @@ def test_the_control_is_not_correct(cell):
     which only the card has)."""
     import importlib
 
-    cfg = run.load_json(HERE, "configs", f"{BENCH_CONFIG[cell]}.json")
     wl = run.load_json(HERE, "workloads", f"{cell}.json")
+    cfg = run.load_json(HERE, "configs", f"{wl['config']}.json")
     if wl["control"] == "tf32" and not torch.cuda.is_available():
         pytest.skip("TF32 exists only on the card")
     dev = "cuda" if torch.cuda.is_available() else "cpu"
@@ -287,9 +252,6 @@ def test_the_control_is_not_correct(cell):
     got = entries.reference_readings(ctx, quant=wl["control"])
     g = entries.gaps(got, ref)
     assert any(g[k] > lim for k, lim in wl["limits"].items()), g
-
-
-BENCH_CONFIG = {w["name"]: w["config"] for w in BENCH["workloads"]}
 
 
 def test_k12_bound_is_bench_pipelines_arithmetic():
