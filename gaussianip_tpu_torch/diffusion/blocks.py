@@ -1,5 +1,5 @@
-"""Building blocks of the SD1.5-class UNet / ControlNet (port of
-gaussianip_tpu/diffusion/blocks.py), NCHW in channels_last memory.
+"""Building blocks of the SD1.5- and SDXL-class UNet / ControlNet (port
+of gaussianip_tpu/diffusion/blocks.py), NCHW in channels_last memory.
 
 Submodules carry the flax names (`norm1`, `conv1`, `to_q.main`, ...), so
 `diffusion/from_flax.py` is a tree walk. Attention runs
@@ -21,12 +21,14 @@ transformer block of a Transformer2D, as an op dict `vcr`:
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import Conv3x3
+from ..utils.profiling import span
 from .layers import Conv, Dense, LayerNorm
 from .norm import GroupNorm
 
@@ -206,34 +208,50 @@ class TransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm -> 1x1 conv in -> transformer block(s) -> 1x1 conv out,
-    residual (diffusers Transformer2DModel, use_linear_projection=False).
-    A VCR op goes to the first block only; returns (out, its stored
-    states or None)."""
+    """GroupNorm -> projection in -> `n_blocks` transformer blocks ->
+    projection out, residual (diffusers Transformer2DModel). The
+    projections are 1x1 convs on [B, C, h, w] (SD1.5,
+    use_linear_projection=False) or, with `linear_projection`, Dense layers
+    on the [B, hw, C] sequence (SDXL, use_linear_projection=True). A VCR op
+    goes to the first block only; returns (out, its stored states or
+    None). Each call is the span `transformer`."""
 
     def __init__(self, channels: int, heads: int, cross_attention_dim: int,
                  n_blocks: int = 1, lora_rank: int = 0, ip_tokens: int = 0,
-                 groups: int = 32, dtype=torch.float32):
+                 groups: int = 32, linear_projection: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.norm = GroupNorm(channels, groups, 1e-6)
-        self.proj_in = Conv(channels, channels, 1, dtype=dtype)
+        proj = (partial(Dense, channels, channels, dtype=dtype)
+                if linear_projection
+                else partial(Conv, channels, channels, 1, dtype=dtype))
+        self.linear_projection = linear_projection
+        self.proj_in = proj()
         for i in range(n_blocks):
             self.add_module(f"block_{i}", TransformerBlock(
                 channels, heads, cross_attention_dim, lora_rank, ip_tokens,
                 dtype))
-        self.n_blocks = n_blocks
-        self.proj_out = Conv(channels, channels, 1, dtype=dtype)
+        self.blocks = [getattr(self, f"block_{i}") for i in range(n_blocks)]
+        self.proj_out = proj()
 
     def forward(self, x, context, ip_scale: float = 1.0,
                 vcr: dict | None = None):
-        b, c, h, w = x.shape
-        y = self.proj_in(self.norm(x))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y, stored = self.block_0(y, context, ip_scale, vcr)
-        for i in range(1, self.n_blocks):
-            y, _ = getattr(self, f"block_{i}")(y, context, ip_scale)
-        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(y) + x, stored
+        with span("transformer"):
+            b, c, h, w = x.shape
+            seq = lambda y: y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+            if self.linear_projection:
+                y = self.proj_in(seq(self.norm(x)))
+            else:
+                y = seq(self.proj_in(self.norm(x)))
+            y, stored = self.blocks[0](y, context, ip_scale, vcr)
+            for block in self.blocks[1:]:
+                y, _ = block(y, context, ip_scale)
+            if self.linear_projection:
+                y = self.proj_out(y)
+            y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+            if not self.linear_projection:
+                y = self.proj_out(y)
+            return y + x, stored
 
 
 class Downsample(nn.Module):

@@ -29,6 +29,7 @@ from ..ops.groupnorm_cuda import group_norm_silu
 from .norm import GroupNorm
 
 SD_VAE_SCALING = 0.18215
+SDXL_VAE_SCALING = 0.13025  # the same widths, SDXL's latent scale
 
 
 @dataclass(frozen=True)

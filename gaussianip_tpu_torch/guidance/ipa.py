@@ -12,7 +12,9 @@ passes back.
 The conditioning is the 77 text tokens of the view's prompt with the 4
 identity tokens of ProjPlusModel appended (81 tokens), for both the UNet
 (which splits the identity tokens off to its IP projections) and the
-ControlNet (which attends over all 81).
+ControlNet (which attends over all 81). An SDXL stack (models with the
+added embedding) also takes each CFG row's pooled text embedding and the
+time ids of an image_size^2 image.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..diffusion.scheduler import DDIMSchedule, add_noise, make_ddim_schedule
+from ..diffusion.unet import time_ids
 from ..ops.resize import linear_resize
 from ..utils.profiling import span
 from .ahds import (
@@ -103,13 +106,16 @@ class AHDSGuidance:
         eps = torch.randn(lat, generator=generator, device=device)
         return {"u": u, "noise": noise, "eps": eps}
 
-    def _context(self, view_aux, batch_size: int):
-        """[3B, S (+ T_ip), D] stacked (pos, neg, null) conditioning."""
-        text = self.prompt_embeds.get_text_embeddings(
+    def _text_rows(self, table, view_aux):
+        return table.get_text_embeddings(
             view_aux["elevation"], view_aux["azimuth"], view_aux["center"],
             view_aux["all_vis"], view_aux["camera_distances"],
             view_dependent=self.cfg.view_dependent_prompting,
             head_offset=self.cfg.head_offset)
+
+    def _context(self, view_aux, batch_size: int):
+        """[3B, S (+ T_ip), D] stacked (pos, neg, null) conditioning."""
+        text = self._text_rows(self.prompt_embeds, view_aux)
         if self.image_embeds is None:
             return text
         e = self.image_embeds
@@ -117,23 +123,38 @@ class AHDSGuidance:
         img = torch.cat([rep(e.pos), rep(e.neg), rep(e.null)], dim=0)
         return torch.cat([text, img.to(text.dtype)], dim=1)
 
+    def _added_cond(self, view_aux):
+        """SDXL's (pooled [3B, P], time ids [3B, 6]) of the stacked rows,
+        or None where the prompts carry no pooled embeddings."""
+        pooled = self.prompt_embeds.pooled
+        if pooled is None:
+            return None
+        rows = self._text_rows(pooled, view_aux)
+        size = self.cfg.image_size
+        return rows, time_ids(size, size, rows.shape[0], rows.device)
+
     def encode_images(self, rgb_bhwc, eps):
         """[B, H, W, 3] in [0, 1] -> scaled float32 latents [B, 4, h, w]."""
         size = self.cfg.image_size
         x = linear_resize(rgb_bhwc.permute(0, 3, 1, 2), size, size)
         return self.models.vae.encode(x * 2.0 - 1.0, eps).float()
 
-    def predict_noise(self, latents_noisy, control, t, context):
+    def predict_noise(self, latents_noisy, control, t, context,
+                      added_cond=None):
         """One ControlNet + UNet pass on an already-expanded batch."""
         m = self.models
         down_res, mid = None, None
         if self.cfg.use_pose_controlnet:
-            down_res, mid = m.controlnet(latents_noisy, t, context, control,
-                                         conditioning_scale=1.0)
-        return m.unet(latents_noisy, t, context,
-                      down_block_residuals=down_res,
-                      mid_block_residual=mid,
-                      ip_scale=self.cfg.ipa_scale).float()
+            with span("controlnet"):
+                down_res, mid = m.controlnet(latents_noisy, t, context,
+                                             control, conditioning_scale=1.0,
+                                             added_cond=added_cond)
+        with span("unet"):
+            return m.unet(latents_noisy, t, context,
+                          down_block_residuals=down_res,
+                          mid_block_residual=mid,
+                          ip_scale=self.cfg.ipa_scale,
+                          added_cond=added_cond).float()
 
     def __call__(self, step: int, draws, rgb, control_img, view_aux):
         cfg = self.cfg
@@ -149,10 +170,13 @@ class AHDSGuidance:
                                       draws["noise"], t)
             n_way = 3 if cfg.use_anpg else 2
             context = self._context(view_aux, b)[:n_way * b]
+            added = self._added_cond(view_aux)
+            if added is not None:
+                added = tuple(x[:n_way * b] for x in added)
             pred = self.predict_noise(
                 torch.cat([latents_noisy] * n_way), torch.cat([control]
                                                               * n_way),
-                torch.cat([t] * n_way), context)
+                torch.cat([t] * n_way), context, added)
             ac = self.ddim.alphas_cumprod
             if cfg.use_anpg:
                 e_pos, e_neg, e_null = pred.chunk(3)

@@ -65,15 +65,20 @@ def direction_index(elevation, azimuth, center_z, all_vis, camera_distances,
 
 
 class PromptEmbeddings(NamedTuple):
+    """The prompt tables: [13, ...] view-dependent positive and negative
+    rows, the null and the plain prompt's row. Text rows are [S, D]; SDXL
+    adds `pooled`, the same four tables of pooled text rows [P]."""
     text_vd: torch.Tensor  # [13, S, D] view-dependent positive embeddings
     uncond_vd: torch.Tensor  # [13, S, D] negative embeddings
     null: torch.Tensor  # [S, D]
     text: torch.Tensor  # [S, D] plain positive
+    pooled: Optional["PromptEmbeddings"] = None
 
     def get_text_embeddings(self, elevation, azimuth, center_z, all_vis,
                             camera_distances, view_dependent: bool = True,
                             head_offset: float = 0.65) -> torch.Tensor:
-        """-> [3B, S, D] stacked (pos, neg, null)."""
+        """-> [3B, ...] stacked (pos, neg, null) rows ([3B, S, D] text;
+        [3B, P] of `pooled`)."""
         b = elevation.shape[0]
         if view_dependent:
             idx = direction_index(elevation, azimuth, center_z, all_vis,
@@ -81,9 +86,9 @@ class PromptEmbeddings(NamedTuple):
             pos = self.text_vd[idx]
             neg = self.uncond_vd[idx]
         else:
-            pos = self.text[None].expand(b, -1, -1)
-            neg = self.uncond_vd[0][None].expand(b, -1, -1)
-        null = self.null[None].expand(b, -1, -1)
+            pos = self.text[None].expand(b, *self.text.shape)
+            neg = self.uncond_vd[0][None].expand(b, *self.text.shape)
+        null = self.null[None].expand(b, *self.null.shape)
         return torch.cat([pos, neg, null], dim=0)
 
 

@@ -14,6 +14,10 @@ gaussianip_tpu/system/pipeline.py).
     IP-Adapter-FaceID-Plus ProjPlusModel, 77 x 768 text embeddings) with
     seeded random float32 weights computed at bf16, and the guidance
     settings of configs/exp.yaml.
+  * `build_random_sdxl_guidance`: the same at SDXL base 1.0's widths
+    (`sdxl_unet_config`; an SDXL OpenPose ControlNet; FaceID PlusV2 SDXL's
+    4 identity tokens at 2048; the SD VAE at SDXL's scaling factor; 77 x
+    2048 text and 1280 pooled embeddings), guiding at 1024^2.
   * `build_stub_guidance_stack`: the tiny weight-free stack for smoke runs.
   * Stage 2 runs the same UNet, ControlNet and VAE (`refine_models`), with
     identity tokens at s_scale 0.5 (`random_refine_contexts`); stage 3's
@@ -41,7 +45,8 @@ from ..diffusion.unet import (
     UNetConfig,
     tiny_unet_config,
 )
-from ..diffusion.vae import AutoencoderKL, VAEConfig, tiny_vae_config
+from ..diffusion.vae import (SDXL_VAE_SCALING, AutoencoderKL, VAEConfig,
+                             tiny_vae_config)
 from ..guidance.ipa import (
     AHDSGuidance,
     GuidanceConfig,
@@ -49,7 +54,8 @@ from ..guidance.ipa import (
     ImageEmbeds,
     compute_image_embeds,
 )
-from ..guidance.prompts import fake_text_encoder, make_prompt_embeddings
+from ..guidance.prompts import (PromptEmbeddings, fake_text_encoder,
+                               make_prompt_embeddings)
 from .refine import RefineModels, refine_contexts, refine_identity_tokens
 
 # configs/exp.yaml system.prompt_processor.prompt and
@@ -70,6 +76,23 @@ def sd15_unet_config(lora_rank: int = 0, ip_tokens: int = 4,
     """SD1.5 widths (320/640/1280/1280). lora_rank 0 is the UNet after the
     IP-Adapter LoRA is folded into the base weights."""
     return UNetConfig(lora_rank=lora_rank, ip_tokens=ip_tokens, dtype=dtype)
+
+
+def sdxl_unet_config(lora_rank: int = 0, ip_tokens: int = 4,
+                     dtype=torch.bfloat16) -> UNetConfig:
+    """SDXL base 1.0's UNet (unet/config.json): levels 320/640/1280, the
+    first without attention, 2 and 10 transformer blocks on the others
+    and 10 in the mid block, 64-wide heads, linear projections, 2048-wide
+    cross-attention and the text-time added embedding (6 ids at 256 after
+    the 1280 pooled text). lora_rank 0: the IP-Adapter LoRA folded in."""
+    return UNetConfig(block_out_channels=(320, 640, 1280),
+                      cross_attention_dim=2048,
+                      attention_head_dim=(5, 10, 20),
+                      transformer_layers_per_block=(0, 2, 10),
+                      use_linear_projection=True,
+                      addition_time_embed_dim=256,
+                      projection_class_embeddings_input_dim=2816,
+                      lora_rank=lora_rank, ip_tokens=ip_tokens, dtype=dtype)
 
 
 def init_random_(module: nn.Module, generator: torch.Generator,
@@ -301,11 +324,13 @@ def load_lpips(sys_cfg: dict, device="cuda"):
     return m.to(device).requires_grad_(False)
 
 
-def _random_faces(gen: torch.Generator, device):
-    """A random ProjPlusModel (bf16), two random unit ArcFace vectors [2,
-    512] (the positive and the irrelevant face) and three random CLIP
-    hidden states [3, 1, 257, 1280] (positive, irrelevant, zero image)."""
-    proj = _build(lambda: ProjPlusModel(dtype=torch.bfloat16), gen, device)
+def _random_faces(gen: torch.Generator, device, width: int = 768):
+    """A random ProjPlusModel (bf16) to `width`-wide identity tokens, two
+    random unit ArcFace vectors [2, 512] (the positive and the irrelevant
+    face) and three random CLIP hidden states [3, 1, 257, 1280] (positive,
+    irrelevant, zero image)."""
+    proj = _build(lambda: ProjPlusModel(width, dtype=torch.bfloat16), gen,
+                  device)
     ids = torch.randn((2, 512), generator=gen, device=device)
     ids = ids / torch.linalg.vector_norm(ids, dim=-1, keepdim=True)
     clip = torch.randn((3, 1, 257, 1280), generator=gen, device=device)
@@ -339,6 +364,43 @@ def build_random_sd15_guidance(seed: int = 0,
                           view_dependent_prompting=True,
                           grad_clip_pixel=True, grad_clip_threshold=1.0,
                           image_size=512)
+    return AHDSGuidance(GuidanceModels(unet, cn, vae), pe, img, gcfg)
+
+
+def build_random_sdxl_guidance(seed: int = 0,
+                               device="cuda") -> AHDSGuidance:
+    """The SDXL guidance stack at full width with random weights from
+    `seed`, computed at bf16: UNet (`sdxl_unet_config`, ip_tokens 4, LoRA
+    folded), ControlNet (ip_tokens 0), VAE (128/256/512/512, scaling
+    0.13025), a 2048-wide ProjPlusModel (s_scale 0.4) on a random unit
+    ArcFace vector and random CLIP hidden states, fake 77 x 2048 text and
+    1280 pooled embeddings of the recipe's prompts, GuidanceConfig of
+    configs/exp.yaml at image_size 1024."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch.bfloat16
+    unet = _build(lambda: UNet2DConditionModel(
+        sdxl_unet_config(0, 4, dtype)), gen, device)
+    cn = _build(lambda: ControlNetModel(sdxl_unet_config(0, 0, dtype)), gen,
+                device)
+    _scale_zero_convs_(cn)
+    vae = _build(lambda: AutoencoderKL(VAEConfig(
+        scaling_factor=SDXL_VAE_SCALING, dtype=dtype)), gen, device)
+    proj, ids, clip = _random_faces(gen, device, 2048)
+    img = compute_image_embeds(proj, ids[:1], ids[1:], clip[0], clip[1],
+                               clip[2], s_scale=0.4)
+    prompts = (RECIPE_PROMPT, RECIPE_NEGATIVE_PROMPT, "")
+    pe = make_prompt_embeddings(fake_text_encoder(77, 2048), *prompts,
+                                device=device)
+    p = make_prompt_embeddings(fake_text_encoder(1, 1280), *prompts,
+                               device=device)
+    pe = pe._replace(pooled=PromptEmbeddings(
+        p.text_vd[:, 0], p.uncond_vd[:, 0], p.null[0], p.text[0]))
+    gcfg = GuidanceConfig(guidance_scale=7.5, guidance_rescale=0.75,
+                          ipa_scale=0.5, use_anpg=True,
+                          use_pose_controlnet=True,
+                          view_dependent_prompting=True,
+                          grad_clip_pixel=True, grad_clip_threshold=1.0,
+                          image_size=1024)
     return AHDSGuidance(GuidanceModels(unet, cn, vae), pe, img, gcfg)
 
 

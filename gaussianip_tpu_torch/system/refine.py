@@ -36,6 +36,7 @@ from ..diffusion.scheduler import (
     make_ddim_schedule,
     refine_timestep_ladder,
 )
+from ..diffusion.unet import time_ids
 from ..human.posemap import openpose_draw
 from ..ops.resize import linear_resize
 from ..parallel.mesh import all_sum, gather_rows, is_main, row_span
@@ -97,28 +98,32 @@ def view_index(name: str) -> int:
 def make_refine_step(models: RefineModels, ddim: DDIMSchedule,
                      guidance_scale: float, ip_scale: float):
     """`run(latents, t, t_prev, context, control, vcr_mode="off",
-    vcr_cache=None, vcr_weights=None) -> (latents, cache)`: one DDIM step
-    of B views. latents [B, 4, h, w] float32; context [2B, S, D] (uncond
-    rows, then cond); control [B, 3, H, W] pose maps; the VCR arguments as
-    the UNet takes them, with caches of 2B rows. The ControlNet + UNet pass
-    runs on the CFG-doubled batch without autograd; cache is what the UNet
-    stored (None outside the store / key modes)."""
+    vcr_cache=None, vcr_weights=None, added_cond=None) -> (latents,
+    cache)`: one DDIM step of B views. latents [B, 4, h, w] float32;
+    context [2B, S, D] (uncond rows, then cond); control [B, 3, H, W] pose
+    maps; the VCR arguments as the UNet takes them, with caches of 2B
+    rows; added_cond, an SDXL stack's (pooled [2B, P], time ids [2B, 6]).
+    The ControlNet + UNet pass runs on the CFG-doubled batch without
+    autograd; cache is what the UNet stored (None outside the store / key
+    modes)."""
 
     @torch.no_grad()
     def run(latents, t: int, t_prev: int, context, control,
-            vcr_mode: str = "off", vcr_cache=None, vcr_weights=None):
+            vcr_mode: str = "off", vcr_cache=None, vcr_weights=None,
+            added_cond=None):
         b = latents.shape[0]
         dev = latents.device
         lat_in = torch.cat([latents] * 2)
         t_in = torch.full((2 * b,), t, dtype=torch.int64, device=dev)
         down_res, mid = models.controlnet(lat_in, t_in, context,
                                           torch.cat([control] * 2),
-                                          conditioning_scale=1.0)
+                                          conditioning_scale=1.0,
+                                          added_cond=added_cond)
         out = models.unet(lat_in, t_in, context,
                           down_block_residuals=down_res,
                           mid_block_residual=mid, ip_scale=ip_scale,
                           vcr_mode=vcr_mode, vcr_cache=vcr_cache,
-                          vcr_weights=vcr_weights)
+                          vcr_weights=vcr_weights, added_cond=added_cond)
         eps, cache = out if vcr_mode != "off" else (out, None)
         e_uncond, e_cond = eps.float().chunk(2)
         eps = e_uncond + guidance_scale * (e_cond - e_uncond)
@@ -170,13 +175,15 @@ def refine_views(models: RefineModels, images, control_images,
                  num_steps: int = NUM_REFINE_STEPS, num_ladder: int = 50,
                  guidance_scale: float = 7.5, ip_scale: float = 0.6,
                  lambda_self: float = LAMBDA_SELF, dense_batch: int = 4,
-                 on_phase=None, group=None):
+                 on_phase=None, group=None, pooled: dict | None = None):
     """Refined images [32, H, W, 3] in [0, 1], in canonical view order.
 
     images, control_images: [32, H, W, 3] in [0, 1] (the stage-1 renders
     and their pose maps, on the models' device); contexts: view name ->
     [2, S, D] (negative, positive); noise: [4, h, w], the draw shared by
-    every view's forward diffusion. `on_phase(name)`, if given, is called
+    every view's forward diffusion; pooled: for an SDXL stack, view name
+    -> [2, P] (negative, positive) pooled text embeddings, the time ids
+    those of an H x W image. `on_phase(name)`, if given, is called
     after the VAE encode ("encode"), each denoise call ("anchors", "keys",
     "dense") and the VAE decode ("decode"): timing hooks.
 
@@ -209,12 +216,21 @@ def refine_views(models: RefineModels, images, control_images,
     run = make_refine_step(models, ddim, guidance_scale, ip_scale)
     control = control_images.permute(0, 3, 1, 2)
 
+    def rows(table, names):
+        """[2B, ...]: the uncond rows of the views, then the cond rows."""
+        return torch.cat([torch.stack([table[n][k] for n in names])
+                          for k in (0, 1)])
+
     def batch(names):
-        """(view indices, [2B, S, D] context, [B, 3, H, W] pose maps)"""
+        """(view indices, [2B, S, D] context, [B, 3, H, W] pose maps,
+        the added conditioning of the 2B rows or None)"""
         idx = torch.tensor([view_index(n) for n in names], device=dev)
-        ctx = torch.cat([torch.stack([contexts[n][k] for n in names])
-                         for k in (0, 1)])
-        return idx, ctx, control[idx]
+        added = None
+        if pooled is not None:
+            added = (rows(pooled, names),
+                     time_ids(images.shape[1], images.shape[2],
+                              2 * len(names), dev))
+        return idx, rows(contexts, names), control[idx], added
 
     b_a, b_k = len(ANCHOR_NAMES), len(KEY_NAMES)
     rows_a = {n: (i, b_a + i) for i, n in enumerate(ANCHOR_NAMES)}
@@ -239,19 +255,21 @@ def refine_views(models: RefineModels, images, control_images,
             mine[dense[-1][1][0]] = True
 
     for t, tp in zip(steps, prevs):
-        idx, ctx, ctrl = anchors
-        lat[idx], cache_a = run(lat[idx], t, tp, ctx, ctrl, "store")
+        idx, ctx, ctrl, added = anchors
+        lat[idx], cache_a = run(lat[idx], t, tp, ctx, ctrl, "store",
+                                added_cond=added)
         note("anchors")
-        idx, ctx, ctrl = keys
+        idx, ctx, ctrl, added = keys
         lat[idx], cache_k = run(lat[idx], t, tp, ctx, ctrl, "key",
-                                [c[key_src] for c in cache_a])
+                                [c[key_src] for c in cache_a],
+                                added_cond=added)
         note("keys")
         comb = [torch.cat([a, k]) for a, k in zip(cache_a, cache_k)]
         cache_a = cache_k = None  # one step's states alive at a time
-        for weights, (idx, ctx, ctrl), src_l, src_r in dense:
+        for weights, (idx, ctx, ctrl, added), src_l, src_r in dense:
             lat[idx], _ = run(lat[idx], t, tp, ctx, ctrl, "dense",
                               ([c[src_l] for c in comb],
-                               [c[src_r] for c in comb]), weights)
+                               [c[src_r] for c in comb]), weights, added)
             note("dense")
         comb = None
     if group is not None:

@@ -16,16 +16,20 @@ from gaussianip_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-# name -> parent, in the order the spans open
+# (name, parent), in the order the spans open; the stub stack's
+# ControlNet holds 2 transformer layers, its UNet 4
 TABLE = {
-    "stage1": {"stage1.step": None, "render": "stage1.step",
-               "vae_encode": "stage1.step", "denoise": "stage1.step",
-               "backward": "stage1.step", "vae_encode.backward": "backward",
-               "render.backward": "backward", "adam": "stage1.step"},
-    "stage3": {"stage3.step": None, "render": "stage3.step",
-               "loss": "stage3.step", "backward": "stage3.step",
-               "loss.backward": "backward", "render.backward": "backward",
-               "adam": "stage3.step"},
+    "stage1": [("stage1.step", None), ("render", "stage1.step"),
+               ("vae_encode", "stage1.step"), ("denoise", "stage1.step"),
+               ("controlnet", "denoise")]
+    + [("transformer", "controlnet")] * 2 + [("unet", "denoise")]
+    + [("transformer", "unet")] * 4
+    + [("backward", "stage1.step"), ("vae_encode.backward", "backward"),
+       ("render.backward", "backward"), ("adam", "stage1.step")],
+    "stage3": [("stage3.step", None), ("render", "stage3.step"),
+               ("loss", "stage3.step"), ("backward", "stage3.step"),
+               ("loss.backward", "backward"),
+               ("render.backward", "backward"), ("adam", "stage3.step")],
 }
 SPLITS = ("vae_encode.backward", "loss.backward", "render.backward")
 MS = 1_000_000  # ns
@@ -89,8 +93,7 @@ def test_a_step_records_the_spans_of_its_table(steps, stage):
     fns, ts = steps
     _profiled(lambda: fns[stage](ts))
     got = profiling.spans()
-    assert [r["name"] for r in got] == list(TABLE[stage])
-    assert {r["name"]: r["parent"] for r in got} == TABLE[stage]
+    assert [(r["name"], r["parent"]) for r in got] == TABLE[stage]
     assert {r["step"] for r in got} == {ts.step}
     by = {r["name"]: r for r in got}
     for r in got:
@@ -151,13 +154,16 @@ def test_span_ranges_lie_on_the_records_clock(steps, stage):
     fns, ts = steps
     _, prof = _profiled(lambda: fns[stage](ts))
     got = profiling.spans()
+    names = {name for name, _ in TABLE[stage]}
     rows = {}
     for e in prof.profiler.kineto_results.events():
-        if e.name() in TABLE[stage]:
+        if e.name() in names:
             rows.setdefault(e.name(), []).append(e)
-    assert set(rows) == set(TABLE[stage]) - set(SPLITS)
-    for r in got:
-        for e in rows.get(r["name"], []):
+    assert set(rows) == names - set(SPLITS)
+    for name, events in rows.items():
+        recs = [r for r in got if r["name"] == name]
+        assert len(recs) == len(events), name
+        for r, e in zip(recs, sorted(events, key=lambda e: e.start_ns())):
             assert not e.is_user_annotation()
             assert str(e.device_type()).endswith("CPU")
             assert r["start_ns"] - MS <= e.start_ns()
