@@ -5,7 +5,8 @@
 Builds the kernels from the checkout (gaussianip_tpu_torch/csrc/: K1 and
 K2, the compositor forward and backward with the per-gaussian gradient
 reduction fused in, in composite.cu; K3, the 3x3 conv, in conv3x3.cu;
-K4, the VAE's GroupNorm with the SiLU fused in, in groupnorm.cu),
+K4, the VAE's GroupNorm with the SiLU fused in, in groupnorm.cu; K5,
+the VAE's single-head attention, in vae_attention.cu),
 holds K1/K2 against their plain PyTorch versions at the stage-1 shapes (4
 cameras, 512x512, capacity 524288, d_max=16) and times them, prints the
 tiles' segment lengths, checks the tiled renderer against the
@@ -20,8 +21,12 @@ Hopper wgmma + TMA one at every SD1.5 shape) and times it beside the
 general variant and F.conv2d, holds K4 against its plain version at
 every GroupNorm shape of the stage-1 encode (forward and backward) and of
 a refine chunk's encode and decode (forward) and times it beside its bound
-and F.group_norm + F.silu, and drives stage-1 training with the real
-AHDS / ANPG guidance (K4's launches counted: 22 GroupNorms a step); the
+and F.group_norm + F.silu, holds K5 against its plain version at the
+VAE's attention shapes (the SDXL and SD1.5 encodes forward and backward,
+a refine chunk forward, tiny ragged ones; bf16 and float32) and times it
+beside its bound and SDPA, and drives stage-1 training with the real
+AHDS / ANPG guidance (K4's launches counted: 22 GroupNorms a step; K5's:
+one attention forward and backward a step); the
 tiny test stack on the card runs the general variant. Then, from the stub-trained, densified and pruned state, the rest
 of the avatar path: the .ply handoff and the 32 refine views at 1024^2,
 K3 against its plain version at every conv shape of a refine denoise call
@@ -1083,6 +1088,133 @@ def check_k4(vae, gen, dev="cuda") -> dict:
             acc["bwd_share_of_bound"] = acc["bwd_bound_ms"] / acc["bwd_ms"]
         log("k4:" + tag, **{k: round(v, 4) for k, v in acc.items()})
     return tot
+
+
+# K5 (the VAE's single-head attention, d = 512) against its plain version
+# on the same inputs; ((B, N, d), backward, what runs it)
+K5_SHAPES = (((4, 16384, 512), True, "sdxl_encode"),
+             ((4, 4096, 512), True, "sd15_encode"),
+             ((2, 16384, 512), False, "refine_chunk"),
+             ((3, 1000, 32), True, "tiny_b3"),
+             ((1, 200, 32), True, "tiny_b1"))
+# bf16: both sides round P (dS) and the outputs to bf16 and sum S, dP and
+# the products in float32 in other orders (~1e-6 relative), which flips
+# the rounding of a few elements by one ulp (2^-8 relative): relative L2
+# gap within 1e-2, worst |diff| within 2^-5 of the plain output's largest
+# |value|. float32 (no TF32 on either side): sum order alone, 1e-4 / 1e-3.
+# lse: absolute 1e-4 (float32 sums of N terms; lse ~ log N + max S).
+K5_REL_TOL = {"bf16": 1e-2, "f32": 1e-4}
+K5_WORST = {"bf16": 2.0 ** -5, "f32": 1e-3}
+K5_LSE_TOL = 1e-4
+
+
+def check_k5(gen, dev="cuda", shapes=K5_SHAPES,
+             dtypes=("bf16", "f32")) -> dict:
+    """K5 against its plain version (ops/vae_attention_cuda.py) at the VAE's
+    attention shapes (K5_SHAPES), in bf16 and float32, on N(0, 1) q, k, v
+    (scores of unit spread at d = 512: the softmax is neither flat nor
+    one-hot) and N(0, 1) dO: o and lse forward, dq / dk / dv backward; a
+    rerun gives the same bits (K5 has no atomics; its products run on
+    cuBLAS). Each shape is timed as K5, as the plain version and as SDPA
+    (`library_ms`: the memory-efficient backend takes a 512-wide head)
+    beside the bound (forward 4, backward 10 B N^2 d operations at the bf16
+    or float32 peak). Returns {tag: {dtype: row}}."""
+    import torch
+    import torch.nn.functional as F
+    from gaussianip_tpu_torch.ops import vae_attention_cuda as k5
+
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    peak = {"bf16": PEAK_BF16_OPS, "f32": PEAK_F32_OPS}
+
+    def plain_fwd(q, k, v):  # a view at a time: S is [N, N] float32
+        outs = [k5.attention_fwd_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                for i in range(q.shape[0])]
+        return torch.cat([o for o, _ in outs]), torch.cat([l for _, l in outs])
+
+    def plain_bwd(do, q, k, v, o, lse):
+        outs = [k5.attention_bwd_plain(*(t[i:i + 1] for t in (do, q, k, v, o,
+                                                               lse)))
+                for i in range(q.shape[0])]
+        return tuple(torch.cat(g) for g in zip(*outs))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp(min=1e-30))
+
+    out = {}
+    for shape, backward, tag in shapes:
+        for dt in dtypes:
+            dtype = types[dt]
+            b, n, d = shape
+            q, k, v, do = (torch.randn(shape, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            o, lse = k5.attention_fwd_cuda(q, k, v)
+            po, plse = plain_fwd(q, k, v)
+            got = {"lse_abs": float((lse - plse).abs().max())}
+            pairs = {"o": (o, po)}
+            same = torch.equal(k5.attention_fwd_cuda(q, k, v)[0], o)
+            if backward:
+                grads = k5.attention_bwd_cuda(do, q, k, v, o, lse)
+                pgrads = plain_bwd(do, q, k, v, o, lse)
+                pairs.update(zip(("dq", "dk", "dv"), zip(grads, pgrads)))
+                again = k5.attention_bwd_cuda(do, q, k, v, o, lse)
+                same = same and all(torch.equal(x, y)
+                                    for x, y in zip(again, grads))
+                del again, pgrads
+            torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"k5 {tag} {shape} {dt}: a rerun "
+                                     f"changed bits")
+            bad = got["lse_abs"] > K5_LSE_TOL
+            for name, (a, p) in pairs.items():
+                got[f"{name}_rel"] = rel(a, p)
+                got[f"{name}_worst"] = float((a.float() - p.float()).abs().max()
+                                             / p.float().abs().max())
+                bad |= not (got[f"{name}_rel"] <= K5_REL_TOL[dt]
+                            and got[f"{name}_worst"] <= K5_WORST[dt])
+            if bad:
+                raise AssertionError(f"k5 {tag} {shape} {dt}: {got}")
+            del pairs, po, plse
+            if backward:
+                del grads
+
+            qh, kh, vh = (t[:, None] for t in (q, k, v))
+            ops = b * n * n * d
+            iters = max(2, min(20, int(2e12 // (4 * ops))))
+            row = {"ms": cuda_ms(lambda: k5.attention_fwd_cuda(q, k, v),
+                                 iters),
+                   "bound_ms": 4 * ops / peak[dt] * 1e3,
+                   "plain_ms": cuda_ms(lambda: plain_fwd(q, k, v), 1, 1),
+                   "library_ms": cuda_ms(
+                       lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                       iters)}
+            if backward:
+                row["bwd_ms"] = cuda_ms(
+                    lambda: k5.attention_bwd_cuda(do, q, k, v, o, lse), iters)
+                row["bwd_bound_ms"] = 10 * ops / peak[dt] * 1e3
+                row["bwd_plain_ms"] = cuda_ms(
+                    lambda: plain_bwd(do, q, k, v, o, lse), 1, 1)
+                qg, kg, vg = (t.detach().requires_grad_(True)
+                              for t in (qh, kh, vh))
+
+                def lib_fwd_bwd():
+                    y = F.scaled_dot_product_attention(qg, kg, vg)
+                    torch.autograd.grad(y, (qg, kg, vg), do[:, None])
+
+                row["bwd_library_ms"] = cuda_ms(lib_fwd_bwd, iters) \
+                    - row["library_ms"]
+            share = {"share_of_bound": row["bound_ms"] / row["ms"]}
+            if backward:
+                share["bwd_share_of_bound"] = row["bwd_bound_ms"] \
+                    / row["bwd_ms"]
+            log("k5", site=tag, shape=list(shape), dtype=dt,
+                **{k_: round(v_, 4) for k_, v_ in {**row, **share}.items()},
+                **{k_: float(f"{v_:.3g}") for k_, v_ in got.items()})
+            out.setdefault(tag, {})[dt] = {**row, **share}
+            del q, k, v, do, o, lse, qh, kh, vh
+            torch.cuda.empty_cache()
+    return out
 
 
 def check_guidance_reference(dev="cuda") -> dict:
@@ -3628,9 +3760,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = _nvcc.build(["composite", "conv3x3", "groupnorm"])
+    libs = _nvcc.build(["composite", "conv3x3", "groupnorm", "vae_attention"])
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for name in ("composite", "conv3x3", "groupnorm")
+    regs = [ln.strip() for name in ("composite", "conv3x3", "groupnorm",
+                                    "vae_attention")
             for ln in _nvcc.ptxas_log.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
@@ -3709,9 +3842,13 @@ def main() -> int:
                   for k, m in guidance.models._asdict().items()})
     k3 = check_k3(conv_sites(guidance, gen, BATCH, RES, dev), gen, dev)
     k4 = check_k4(guidance.models.vae, gen, dev)
+    k5 = check_k5(gen, dev)
     from gaussianip_tpu_torch.ops import groupnorm_cuda
+    from gaussianip_tpu_torch.ops import vae_attention_cuda
     groupnorm_cuda.groupnorm_fwd_cuda.launches = 0
     groupnorm_cuda.groupnorm_bwd_cuda.launches = 0
+    vae_attention_cuda.attention_fwd_cuda.launches = 0
+    vae_attention_cuda.attention_bwd_cuda.launches = 0
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
         GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
@@ -3728,6 +3865,17 @@ def main() -> int:
                              f"{k4_launches} != {k4_want}")
     log("k4:launches", steps=N_GUIDED, **k4_launches,
         per_step=sum(k4_launches.values()) // N_GUIDED)
+    # the stage-1 encode's one attention a step: a forward and a backward
+    # over BATCH views
+    k5_launches = {"fwd": vae_attention_cuda.attention_fwd_cuda.launches,
+                   "bwd": vae_attention_cuda.attention_bwd_cuda.launches}
+    k5_want = {"fwd": vae_attention_cuda.fwd_launches(BATCH) * N_GUIDED,
+               "bwd": vae_attention_cuda.bwd_launches(BATCH) * N_GUIDED}
+    if k5_launches != k5_want:
+        raise AssertionError(f"k5 launches over {N_GUIDED} guided steps: "
+                             f"{k5_launches} != {k5_want}")
+    log("k5:launches", steps=N_GUIDED, **k5_launches,
+        per_step=sum(k5_launches.values()) // N_GUIDED)
     layers = guided_layers(guidance, gen, BATCH, RES, dev)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
         rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
@@ -3934,6 +4082,22 @@ def main() -> int:
                    "2 latents at 128^2, forward)",
             **{tag: {k: round(v, 4) for k, v in k4[tag].items()}
                for tag in ("refine_encode", "refine_decode")}}})
+    kernels.append({
+        "name": "K5 single-head attention, d = 512: fwd: stats + probs per "
+                "view (P v on torch.mm), bwd: rowdot + grads per view (dV, "
+                "dQ, dK on torch.mm)", "route": "cuda",
+        "source": "gaussianip_tpu_torch/csrc/vae_attention.cu",
+        "replaces": None,
+        "per": f"guided step (the encode's mid attention, {BATCH} views of "
+               f"{(RES // 8) ** 2} tokens, forward and backward)",
+        **{k: round(v, 4) for k, v in k5["sd15_encode"]["bf16"].items()},
+        "launches": k5_launches,
+        "sdxl_encode": {k: round(v, 4)
+                        for k, v in k5["sdxl_encode"]["bf16"].items()},
+        "stage2_refine": {
+            "per": "refine chunk (2 views at 1024^2, the encode's or the "
+                   "decode's attention, forward)",
+            **{k: round(v, 4) for k, v in k5["refine_chunk"]["bf16"].items()}}})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -77,3 +78,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build([name])[name])
         _loaded[name] = lib
     return lib
+
+
+@functools.cache
+def tensor_map_encoder() -> int:
+    """libcuda's cuTensorMapEncodeTiled, as an address for the C side of
+    the TMA kernels (libcuda is already loaded by PyTorch; nothing links
+    against it)."""
+    fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    return ctypes.cast(fn, ctypes.c_void_p).value

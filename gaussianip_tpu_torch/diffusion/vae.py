@@ -13,6 +13,11 @@ attention's group_norm). The VAE's tensors are large (4 x 128 x 512^2 in
 the stage-1 encode) and its GroupNorms are bound by bytes, which K4 cuts
 to two passes each way. The modules keep norm.GroupNorm's parameters and
 names.
+
+The mid blocks' single-head attention (one 512-wide head) runs K5
+(ops/vae_attention_cuda.py), not SDPA: no fused SDPA backend takes a head
+that wide at the tensor cores' rate. The UNet's attention keeps
+`blocks.attend`.
 """
 
 from __future__ import annotations
@@ -23,9 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import attend
 from .layers import Conv, Dense
 from ..ops.groupnorm_cuda import group_norm_silu
+from ..ops.vae_attention_cuda import vae_attention
 from .norm import GroupNorm
 
 SD_VAE_SCALING = 0.18215
@@ -86,7 +91,8 @@ class VAEResnet(nn.Module):
 
 
 class VAEAttention(nn.Module):
-    """Single-head self-attention over the pixels, residual."""
+    """Single-head self-attention over the pixels, residual; the attention
+    itself on K5."""
 
     def __init__(self, channels: int, groups: int, dtype):
         super().__init__()
@@ -99,7 +105,8 @@ class VAEAttention(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        o = self.to_out(attend(self.to_q(y), self.to_k(y), self.to_v(y), 1))
+        o = self.to_out(vae_attention(self.to_q(y), self.to_k(y),
+                                      self.to_v(y)))
         return x + o.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 

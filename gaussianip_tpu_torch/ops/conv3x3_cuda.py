@@ -31,6 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import _nvcc
+
 # the Hopper variant's tile: BM output pixels (two consumer warpgroups of
 # 64 rows) x BN output channels, K-steps of one tap x 64 channels (128 B,
 # one 128B-swizzle row)
@@ -158,8 +160,6 @@ def k3_plan(b: int, h: int, w: int, ci: int, co: int) -> K3Plan:
 
 @functools.cache
 def _lib():
-    from .. import _nvcc
-
     lib = _nvcc.load("conv3x3")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
@@ -177,14 +177,6 @@ def hopper_smem_bytes(bn: int) -> int:
     """Dynamic shared memory of the Hopper variant's instantiation for
     `bn` (its ring of stages, barriers and alignment slack)."""
     return _lib().conv3x3_hopper_smem(bn)
-
-
-@functools.cache
-def _encode_tiled() -> int:
-    """libcuda's cuTensorMapEncodeTiled, as an address for the C side
-    (libcuda is already loaded by PyTorch; nothing links against it)."""
-    fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
-    return ctypes.cast(fn, ctypes.c_void_p).value
 
 
 def _check_x(x):
@@ -253,7 +245,7 @@ def conv3x3_hopper(x, w_packed, bias=None) -> torch.Tensor:
         part = torch.empty((plan.splits, b * h * w, co), dtype=torch.float32,
                            device=x.device)
     err = _lib().conv3x3_hopper_fwd(
-        _encode_tiled(), x.data_ptr(), w_packed.data_ptr(),
+        _nvcc.tensor_map_encoder(), x.data_ptr(), w_packed.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         None if part is None else part.data_ptr(), b, h, w, ci, co, plan.bn,
         *plan.box, plan.splits, torch.cuda.current_stream().cuda_stream)
