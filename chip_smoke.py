@@ -95,6 +95,8 @@ import time
 
 import numpy as np
 
+from gaussianip_tpu_torch.kernels import count_launches
+
 N_STEPS = 25
 WARMUP_STEPS = 5
 N_GUIDED = 6
@@ -610,7 +612,6 @@ def check_oracle(gs, dev):
     from gaussianip_tpu_torch.data.sampler import (CameraSamplerConfig,
                                                    eval_orbit_batch)
     from gaussianip_tpu_torch.model.gaussians import PARAM_FIELDS
-    from gaussianip_tpu_torch.render import composite_cuda as cc
     from gaussianip_tpu_torch.render.render import RenderConfig, render
 
     n, res = 300, 32
@@ -625,8 +626,6 @@ def check_oracle(gs, dev):
     cams = camera_from_c2w(orbit.c2w[:2], orbit.fovy[:2], res, res)
     bg = torch.zeros(3, device=dev)
     tgt = torch.rand((2, res, res, 3), generator=g, device=dev)
-    counters = (cc.composite_fwd_cuda, cc.composite_bwd_gaussians_cuda)
-    launches = [c.launches for c in counters]
 
     def grads(cfg):
         leaves = {f: getattr(small, f).detach().requires_grad_(True)
@@ -636,13 +635,10 @@ def check_oracle(gs, dev):
         gr = torch.autograd.grad(loss, [leaves[f] for f in PARAM_FIELDS])
         return out, dict(zip(PARAM_FIELDS, gr))
 
-    o_t, g_t = grads(RenderConfig(d_max=16, depth_key="exact2",
-                                  sort_stable=True))
+    (o_t, g_t), ran = count_launches(lambda: grads(RenderConfig(
+        d_max=16, depth_key="exact2", sort_stable=True)))
     o_r, g_r = grads(RenderConfig(backend="reference"))
-    ran = [c.launches - n0 for c, n0 in zip(counters, launches)]
-    if ran != [1, 1]:
-        raise AssertionError(f"oracle check launched K1, K2 {ran} times, "
-                             f"want once each")
+    check_launches("oracle", ran, {"K1": 1, "K2": 1})
     errs = {}
     for name, a, b, tol in (("rgb", o_t.rgb, o_r.rgb, 3e-4),
                             ("alpha", o_t.alpha, o_r.alpha, 3e-4),
@@ -663,7 +659,7 @@ def check_oracle(gs, dev):
         if not gerr[f] < ORACLE_GRAD_TOL:
             raise AssertionError(f"oracle grad {f}: {gerr[f]}")
     log("oracle", n=n, res=res, image_q99_max=errs, grad_rel_err=gerr,
-        k1_k2_launches=ran)
+        k1_k2_launches=[ran["K1"], ran["K2"]])
 
 
 def profile_steps(ts, cfg, cam_cfg, rcfg, guidance, points3d, gen,
@@ -806,12 +802,8 @@ def check_k3(sites, gen, dev="cuda", tag: str = "k3"):
         variant = k3.k3_variant(ci, co)
         wp = k3.pack_weight(mod.weight.detach())
         wg = k3.pack_weight(mod.weight.detach(), variant="general")
-        counter = getattr(k3, f"conv3x3_{variant}")
-        before = counter.launches
-        y = k3.conv3x3_cuda(x, wp, bias)
-        if counter.launches != before + 1:
-            raise AssertionError(f"K3 {ci}->{co}: the {variant} variant "
-                                 f"did not launch")
+        y, ran = count_launches(lambda: k3.conv3x3_cuda(x, wp, bias))
+        check_launches(f"K3 {ci}->{co}", ran, {f"K3_{variant}": 1})
         yp = k3.conv3x3_plain(x, wb, bias)
         torch.cuda.synchronize()
         err = float((y.float() - yp.float()).abs().max())
@@ -862,20 +854,20 @@ def check_k3(sites, gen, dev="cuda", tag: str = "k3"):
     x = torch.randn((b, ci, h, w), generator=gen, device=dev).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     x.requires_grad_(True)
-    before = {v: getattr(k3, f"conv3x3_{v}").launches
-              for v in ("hopper", "general")}
-    y = conv3x3(x, mod.weight.detach())
-    g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
-    y.backward(g)
+
+    def fwd_bwd():
+        y = conv3x3(x, mod.weight.detach())
+        g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+        y.backward(g)
+        return g
+
+    g, ran = count_launches(fwd_bwd)
     wt = mod.weight.detach().flip(2, 3).transpose(0, 1).to(torch.bfloat16)
     dxp = k3.conv3x3_plain(g, wt)
     torch.cuda.synchronize()
     dx_variant = k3.k3_variant(co, ci)
-    dx_launches = {v: getattr(k3, f"conv3x3_{v}").launches - n
-                   for v, n in before.items()}
-    if dx_launches[dx_variant] != 1 + (k3.k3_variant(ci, co) == dx_variant):
-        raise AssertionError(f"K3 dx did not run the {dx_variant} variant: "
-                             f"{dx_launches}")
+    check_launches("K3 dx", ran, {f"K3_{dx_variant}": 1 + (
+        k3.k3_variant(ci, co) == dx_variant)})
     dx_err = float((x.grad.float() - dxp.float()).abs().max())
     dx_scale = float(dxp.float().abs().max())
     if not dx_err <= K3_REL_TOL * dx_scale:
@@ -1226,8 +1218,6 @@ def check_guidance_reference(dev="cuda") -> dict:
     pass on the 12-sample CFG batch. Returns each output's worst |diff|
     relative to its largest |value|."""
     import torch
-    from gaussianip_tpu_torch.ops.conv3x3_cuda import (conv3x3_cuda,
-                                                       conv3x3_general)
     from gaussianip_tpu_torch.system.pipeline import (
         build_stub_guidance_stack)
 
@@ -1244,23 +1234,22 @@ def check_guidance_reference(dev="cuda") -> dict:
     lat = torch.randn(ref.latent_shape(3 * b), generator=g)
     ctrl = torch.rand((3 * b, 3, 64, 64), generator=g)
     t = torch.randint(20, 800, (3 * b,), generator=g)
-    launches = conv3x3_cuda.launches
-    general = conv3x3_general.launches
-    outs = []
-    for guid, d in ((ref, "cpu"), (card, dev)):
+
+    def run(guid, d):
         x = rgb.to(d, copy=True).requires_grad_(True)
         z = guid.encode_images(x, eps.to(d))
         (z * wz.to(d)).sum().backward()
         with torch.no_grad():
             e = guid.predict_noise(lat.to(d), ctrl.to(d), t.to(d),
                                    guid._context(view_aux(b, d), b))
-        outs.append([v.detach().float().cpu().clone()
-                     for v in (z, x.grad, e)])
-    if conv3x3_cuda.launches == launches:
-        raise AssertionError("the card's tiny stack did not run K3")
-    if conv3x3_general.launches == general:
-        raise AssertionError("the card's tiny stack did not run K3's "
-                             "general variant")
+        return [v.detach().float().cpu().clone() for v in (z, x.grad, e)]
+
+    outs = [run(ref, "cpu")]
+    on_card, launches = count_launches(lambda: run(card, dev), dev)
+    outs.append(on_card)
+    if launches["K3"] == 0 or launches["K3_general"] == 0:
+        raise AssertionError(f"the card's tiny stack did not run K3's "
+                             f"general variant: {launches}")
     errs = {}
     for name, r, c in zip(("latents", "d_rgb", "denoise"), *outs):
         errs[name] = float((c - r).abs().max() / r.abs().max())
@@ -1268,8 +1257,7 @@ def check_guidance_reference(dev="cuda") -> dict:
             raise AssertionError(f"guidance {name}: card bf16 vs CPU f32 "
                                  f"{errs[name]} > {GUIDANCE_REF_TOL}")
     log("guidance_reference", rel_err=errs, tol=GUIDANCE_REF_TOL,
-        k3_general_launches=conv3x3_general.launches - general,
-        k3_launches=conv3x3_cuda.launches - launches)
+        launches=launches)
     return errs
 
 
@@ -1309,9 +1297,8 @@ def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
 def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
                 warmup: int, want: dict):
     """Stage-1 steps at the recipe's sizes from the state gs0: finite
-    losses, parameters moved, and the launches of K1 ("fwd"), K2 ("bwd")
-    and K3 ("conv3x3", and per variant "conv3x3_hopper",
-    "conv3x3_general") counted from 0 in this run alone equal to `want`.
+    losses, parameters moved, and the launches in this run alone of each
+    kernel that `want` names (`check_launches`).
     Returns (state, config, launches, median ms per step after
     `warmup`)."""
     import torch
@@ -1347,8 +1334,7 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
         raise AssertionError(f"{tag}: non-finite loss: {losses} {sds}")
     if not all(v > 0 for v in moved.values()):
         raise AssertionError(f"{tag}: parameters did not move: {moved}")
-    if launches != want:
-        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    check_launches(tag, launches, want)
     log(tag, steps=n_steps, loss_first=losses[0], loss_last=losses[-1],
         loss_sds=[round(x, 6) for x in sds], median_ms_per_step=med,
         step_ms=[round(x, 3) for x in step_ms], peak_gib=round(peak_gib, 3),
@@ -1356,29 +1342,11 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
     return ts, cfg, launches, med
 
 
-def kernel_counters():
-    """name -> the launch counter of each kernel wrapper."""
-    from gaussianip_tpu_torch.ops import conv3x3_cuda as k3
-    from gaussianip_tpu_torch.render import composite_cuda as cc
-
-    return {"fwd": cc.composite_fwd_cuda,
-            "bwd": cc.composite_bwd_gaussians_cuda,
-            "conv3x3": k3.conv3x3_cuda, "conv3x3_hopper": k3.conv3x3_hopper,
-            "conv3x3_general": k3.conv3x3_general}
-
-
-def count_launches(fn):
-    """(fn()'s result, each kernel's launches counted from 0 in this call
-    alone)."""
-    import torch
-
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.synchronize()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {k: c.launches for k, c in counters.items()}
+def check_launches(tag, got, want):
+    """Raise unless each kernel that `want` names (the registry's names)
+    launched as often in `got`; the others are not checked."""
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
 
 
 def check_images(tag, x, shape):
@@ -1430,10 +1398,9 @@ def handoff(ts, sk, rcfg):
     shape = (REFINE_VIEWS, HIRES, HIRES, 3)
     check_images("handoff images", images, shape)
     check_images("handoff pose maps", poses, shape)
-    want = {"fwd": REFINE_VIEWS // 4, "bwd": 0, "conv3x3": 0,
-            "conv3x3_hopper": 0, "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"handoff: launches {launches} != {want}")
+    want = {"K1": REFINE_VIEWS // 4, "K2": 0, "K3": 0,
+            "K3_hopper": 0, "K3_general": 0}
+    check_launches("handoff", launches, want)
     covered = (images.amax(dim=-1) > 0).flatten(1).float().mean(1)
     if not bool((covered > 0).all()):
         raise AssertionError(f"handoff: empty views {covered.tolist()}")
@@ -1522,7 +1489,7 @@ def check_refine_reference(r: int = REFINE_REF_RES) -> float:
             {k: v.to(d) for k, v in ctx.items()}, noise.to(d), num_steps=1)
         out, launches = count_launches(run)
         outs.append(out.float().cpu())
-    if launches["conv3x3"] == 0 or launches["conv3x3_general"] == 0:
+    if launches["K3"] == 0 or launches["K3_general"] == 0:
         raise AssertionError(f"refine_reference: the card's tiny stack did "
                              f"not run K3's general variant: {launches}")
     err = float((outs[1] - outs[0]).abs().max())
@@ -1602,10 +1569,9 @@ def stage2_phase(models, images, poses, contexts, gen):
         raise AssertionError(f"stage2_refine: views unchanged: "
                              f"{changed.tolist()}")
     calls = REFINE_STEPS * REFINE_CALLS_PER_STEP
-    want = {"fwd": 0, "bwd": 0, "conv3x3": K3_SITES * calls,
-            "conv3x3_hopper": K3_SITES * calls, "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"stage2_refine: launches {launches} != {want}")
+    want = {"K1": 0, "K2": 0, "K3": K3_SITES * calls,
+            "K3_hopper": K3_SITES * calls, "K3_general": 0}
+    check_launches("stage2_refine", launches, want)
     targets = crop_and_downsample(refined)
     check_images("stage3 targets", targets, (
         REFINE_VIEWS, (CROP_Y[1] - CROP_Y[0]) // 2,
@@ -1678,10 +1644,9 @@ def stage3_phase(gs, orbit, targets, gen):
     torch.cuda.reset_peak_memory_stats()
     ts, launches = count_launches(run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"fwd": S3_STEPS, "bwd": S3_STEPS, "conv3x3": 0,
-            "conv3x3_hopper": 0, "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"stage3: launches {launches} != {want}")
+    want = {"K1": S3_STEPS, "K2": S3_STEPS, "K3": 0,
+            "K3_hopper": 0, "K3_general": 0}
+    check_launches("stage3", launches, want)
     for f in PARAM_FIELDS:
         if not bool(torch.isfinite(getattr(ts.gaussians, f)).all()):
             raise AssertionError(f"stage3: non-finite {f}")
@@ -1737,10 +1702,9 @@ def turntable_phase(gs):
         gs, orbit, HIRES, HIRES, RenderConfig(d_max=S3_D_MAX)))
     total_ms = (time.perf_counter() - t0) * 1e3
     check_images("turntable", frames, (n, HIRES, HIRES, 3))
-    want = {"fwd": -(-n // 4), "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
-            "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"turntable: launches {launches} != {want}")
+    want = {"K1": -(-n // 4), "K2": 0, "K3": 0, "K3_hopper": 0,
+            "K3_general": 0}
+    check_launches("turntable", launches, want)
     log("turntable", frames=n, res=HIRES, total_ms=round(total_ms, 3),
         ms_per_frame=round(total_ms / n, 3), launches=launches)
     return launches
@@ -1828,11 +1792,11 @@ def animation_phase(gs, tmp: str, dev="cuda"):
         out, launches = count_launches(lambda: animation.main(argv))
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     frames = len(seen["frames"])
-    want = {"fwd": ANIM_FRAMES, "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
-            "conv3x3_general": 0}
-    if frames != ANIM_FRAMES or launches != want:
-        raise AssertionError(f"animation: {frames} frames, launches "
-                             f"{launches} != {want}")
+    want = {"K1": ANIM_FRAMES, "K2": 0, "K3": 0, "K3_hopper": 0,
+            "K3_general": 0}
+    if frames != ANIM_FRAMES:
+        raise AssertionError(f"animation: {frames} frames")
+    check_launches("animation", launches, want)
     stats = torch.stack(seen["frames"]).cpu().numpy()
     if not (stats[:, 0].all() and stats[:, 1].min() >= 0.0
             and stats[:, 2].max() <= 1.0):
@@ -1991,10 +1955,9 @@ def anim_refine_phase(guidance, motion, gen, dev="cuda"):
     torch.cuda.reset_peak_memory_stats()
     ts, launches = count_launches(run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"fwd": n_steps, "bwd": n_steps, "conv3x3": K3_SITES * n_steps,
-            "conv3x3_hopper": K3_SITES * n_steps, "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"anim_refine: launches {launches} != {want}")
+    want = {"K1": n_steps, "K2": n_steps, "K3": K3_SITES * n_steps,
+            "K3_hopper": K3_SITES * n_steps, "K3_general": 0}
+    check_launches("anim_refine", launches, want)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"anim_refine: non-finite loss {losses}")
     m_xyz = float(ts.opt.m["xyz"][:PTS_NUM].abs().max())
@@ -2168,10 +2131,9 @@ def photo_recon_phase(gs, tmp: str, gen, dev="cuda"):
     out, launches = count_launches(run)
     n_eval = 2 * PR_TEST_VIEWS
     n_steps = PR_ITERS + PR_SH_STEPS
-    want = {"fwd": n_steps + n_eval, "bwd": n_steps, "conv3x3": 0,
-            "conv3x3_hopper": 0, "conv3x3_general": 0}
-    if launches != want:
-        raise AssertionError(f"photo_recon: launches {launches} != {want}")
+    want = {"K1": n_steps + n_eval, "K2": n_steps, "K3": 0,
+            "K3_hopper": 0, "K3_general": 0}
+    check_launches("photo_recon", launches, want)
     before, after = out["before"], out["after"]
     gain = after["psnr"] - before["psnr"]
     step_ms = np.diff(stamps) * 1e3
@@ -2322,17 +2284,16 @@ def viewer_phase(gs, dev="cuda"):
     want = (want.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
     equal = bool(np.array_equal(img, want))
     same = all(p == pngs[0] for p in pngs)
-    expect = {"fwd": VIEWER_REQUESTS, "bwd": 0, "conv3x3": 0,
-              "conv3x3_hopper": 0, "conv3x3_general": 0}
+    expect = {"K1": VIEWER_REQUESTS, "K2": 0, "K3": 0,
+              "K3_hopper": 0, "K3_general": 0}
     log("viewer", size=VIEWER_SIZE, requests=VIEWER_REQUESTS,
         ms_per_request=[round(x, 3) for x in ms], png_bytes=len(pngs[-1]),
         equal_to_render=equal, requests_identical=same,
         lit_share=round(float((want.max(-1) > 0).mean()), 4),
         page_ok=b"gaussianip-tpu viewer" in page, launches=launches)
-    if not (equal and same and b"gaussianip-tpu viewer" in page
-            and launches == expect):
-        raise AssertionError(f"viewer: equal {equal}, identical {same}, "
-                             f"launches {launches} != {expect}")
+    if not (equal and same and b"gaussianip-tpu viewer" in page):
+        raise AssertionError(f"viewer: equal {equal}, identical {same}")
+    check_launches("viewer", launches, expect)
     return launches
 
 
@@ -2430,10 +2391,10 @@ def watch_calls(*targets):
 # kernel launch counts
 MODULE_CHILD = (
     "import json, runpy, sys\n"
-    "import chip_smoke\n"
+    "from gaussianip_tpu_torch.kernels import COUNTERS\n"
     "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
     "print('launches=' + json.dumps({k: c.launches for k, c in "
-    "chip_smoke.kernel_counters().items()}), flush=True)\n")
+    "COUNTERS.items()}), flush=True)\n")
 
 
 def cli_kernel_checks(cfg, ply, gen):
@@ -2539,10 +2500,10 @@ def cli_phase():
 
     def want(stage, got, fwd, bwd, k3):
         """Launch counts: fwd and bwd exact, K3 > 0 when k3 else 0."""
-        if not (got["fwd"] == fwd and got["bwd"] == bwd and (
-                got["conv3x3"] > 0 if k3 else got["conv3x3"] == 0) and
-                got["conv3x3"] == got["conv3x3_hopper"]
-                + got["conv3x3_general"]):
+        if not (got["K1"] == fwd and got["K2"] == bwd and (
+                got["K3"] > 0 if k3 else got["K3"] == 0) and
+                got["K3"] == got["K3_hopper"]
+                + got["K3_general"]):
             raise AssertionError(f"cli {stage}: launches {got}; want K1 "
                                  f"{fwd}, K2 {bwd}, K3 "
                                  f"{'> 0' if k3 else 0}")
@@ -3043,8 +3004,8 @@ def cli_real_phase():
                 "--train", "--stage", "stage1", "--max_steps", str(n)])
             m = manifest()
             want_k3 = K3_SITES * n
-            if (got["fwd"], got["bwd"], got["conv3x3"],
-                    got["conv3x3_hopper"]) != (n + 1 + REFINE_VIEWS // 4, n,
+            if (got["K1"], got["K2"], got["K3"],
+                    got["K3_hopper"]) != (n + 1 + REFINE_VIEWS // 4, n,
                                               want_k3, want_k3):
                 raise AssertionError(f"cli:real stage1: launches {got}")
             if m.get("stage1") != "done" or m.get("stage1_steps") != n:
@@ -3072,8 +3033,8 @@ def cli_real_phase():
 
             wall, _, calls, got = stage("stage2", ["--stage", "stage2"])
             want_k3 = K3_SITES * REFINE_STEPS * REFINE_CALLS_PER_STEP
-            if (got["fwd"], got["bwd"], got["conv3x3"],
-                    got["conv3x3_hopper"]) != (0, 0, want_k3, want_k3):
+            if (got["K1"], got["K2"], got["K3"],
+                    got["K3_hopper"]) != (0, 0, want_k3, want_k3):
                 raise AssertionError(f"cli:real stage2: launches {got}")
             small = npz_shapes(os.path.join(root, "after_refine.npz"))
             cy, cx = refine_mod.CROP_Y, refine_mod.CROP_X
@@ -3090,7 +3051,7 @@ def cli_real_phase():
 
             wall, _, _, got = stage("stage3", [
                 "--train", "--stage", "stage3", "--max_steps", str(n)])
-            if (got["fwd"], got["bwd"], got["conv3x3"]) != (
+            if (got["K1"], got["K2"], got["K3"]) != (
                     n + CLI_TEST_FRAMES // 4, n, 0):
                 raise AssertionError(f"cli:real stage3: launches {got}")
             m = manifest()
@@ -3515,8 +3476,8 @@ def dp_phase(gs, sk, dev="cuda"):
     calls = DP_REFINE_STEPS * 5
     k3 = K3_SITES * (DP_STEPS + calls)
     renders = 2 + DP_STEPS + DP_S3_STEPS  # dp_stage1_f32 makes 2 steps
-    want = {"fwd": renders, "bwd": renders, "conv3x3": k3,
-            "conv3x3_hopper": k3, "conv3x3_general": 0}
+    want = {"K1": renders, "K2": renders, "K3": k3,
+            "K3_hopper": k3, "K3_general": 0}
     totals = []
     for r, out in enumerate(res):
         tot = {k: sum(out["launches"][p][k] for p in (
@@ -3593,10 +3554,9 @@ def render_ply_phase(gs, tmp: str):
         raise AssertionError(
             f"render_ply: PNG {got.shape} differs from the in-process render "
             f"at {int((got != want).any(axis=-1).sum())} pixels")
-    want_l = {"fwd": 1, "bwd": 0, "conv3x3": 0, "conv3x3_hopper": 0,
-              "conv3x3_general": 0}
-    if launches != want_l:
-        raise AssertionError(f"render_ply: launches {launches} != {want_l}")
+    want_l = {"K1": 1, "K2": 0, "K3": 0, "K3_hopper": 0,
+              "K3_general": 0}
+    check_launches("render_ply", launches, want_l)
     log("render_ply", res=HIRES, n_active=g.n_active, wall_s=round(wall, 3),
         alpha_coverage=float(ref.alpha.mean()), png_equal=True,
         launches=launches)
@@ -3651,8 +3611,8 @@ def weight_parity_phase(src, files: dict, tmp: str):
     if sorted(checks) != keys or set(checks.values()) != {"OK"}:
         raise AssertionError(f"weight_parity: {checks}\n{out}")
     launches = json.loads(out.strip().splitlines()[-1].split(" ", 1)[1])
-    if launches != {"K1": 0, "K2": 0, "K3": K3_SITES}:
-        raise AssertionError(f"weight_parity: launches {launches}")
+    check_launches("weight_parity", launches,
+                   {"K1": 0, "K2": 0, "K3": K3_SITES})
     errs = {ln.split(":")[0]: ln.split("=", 1)[1].rsplit(" ", 1)[0]
             for ln in out.splitlines() if "max_abs_err=" in ln}
 
@@ -3760,10 +3720,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = _nvcc.build(["composite", "conv3x3", "groupnorm", "vae_attention"])
+    libs = _nvcc.build(_nvcc.LIBRARIES)  # every library a wrapper binds
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for name in ("composite", "conv3x3", "groupnorm",
-                                    "vae_attention")
+    regs = [ln.strip() for name in libs
             for ln in _nvcc.ptxas_log.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln]
     log("build", seconds=round(build_s, 2), ptxas=regs)
@@ -3805,8 +3764,8 @@ def main() -> int:
     guidance = make_stub_guidance(target_rgb=tgt, noise_scale=0.01)
     ts, cfg, launches, _ = train_phase(
         "stage1", gs0, sk, guidance, gen, cam_cfg, rcfg, N_STEPS,
-        WARMUP_STEPS, {"fwd": N_STEPS, "bwd": N_STEPS, "conv3x3": 0,
-                       "conv3x3_hopper": 0, "conv3x3_general": 0})
+        WARMUP_STEPS, {"K1": N_STEPS, "K2": N_STEPS, "K3": 0,
+                       "K3_hopper": 0, "K3_general": 0})
     profile_steps(ts, cfg, cam_cfg, rcfg, guidance, sk.points3d, gen)
 
     densify, prune = s1.make_densify_fns(cfg)
@@ -3845,37 +3804,20 @@ def main() -> int:
     k5 = check_k5(gen, dev)
     from gaussianip_tpu_torch.ops import groupnorm_cuda
     from gaussianip_tpu_torch.ops import vae_attention_cuda
-    groupnorm_cuda.groupnorm_fwd_cuda.launches = 0
-    groupnorm_cuda.groupnorm_bwd_cuda.launches = 0
-    vae_attention_cuda.attention_fwd_cuda.launches = 0
-    vae_attention_cuda.attention_bwd_cuda.launches = 0
+    # a step's encode: 22 GroupNorms (K4) and one attention over BATCH
+    # views (K5), forward and backward
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
-        GUIDED_WARMUP, {"fwd": N_GUIDED, "bwd": N_GUIDED,
-                        "conv3x3": K3_SITES * N_GUIDED,
-                        "conv3x3_hopper": K3_SITES * N_GUIDED,
-                        "conv3x3_general": 0})
-    k4_launches = {
-        "fwd": groupnorm_cuda.groupnorm_fwd_cuda.launches,
-        "bwd": groupnorm_cuda.groupnorm_bwd_cuda.launches}
-    k4_want = {"fwd": 22 * groupnorm_cuda.FWD_KERNELS * N_GUIDED,
-               "bwd": 22 * groupnorm_cuda.BWD_KERNELS * N_GUIDED}
-    if k4_launches != k4_want:
-        raise AssertionError(f"k4 launches over {N_GUIDED} guided steps: "
-                             f"{k4_launches} != {k4_want}")
-    log("k4:launches", steps=N_GUIDED, **k4_launches,
-        per_step=sum(k4_launches.values()) // N_GUIDED)
-    # the stage-1 encode's one attention a step: a forward and a backward
-    # over BATCH views
-    k5_launches = {"fwd": vae_attention_cuda.attention_fwd_cuda.launches,
-                   "bwd": vae_attention_cuda.attention_bwd_cuda.launches}
-    k5_want = {"fwd": vae_attention_cuda.fwd_launches(BATCH) * N_GUIDED,
-               "bwd": vae_attention_cuda.bwd_launches(BATCH) * N_GUIDED}
-    if k5_launches != k5_want:
-        raise AssertionError(f"k5 launches over {N_GUIDED} guided steps: "
-                             f"{k5_launches} != {k5_want}")
-    log("k5:launches", steps=N_GUIDED, **k5_launches,
-        per_step=sum(k5_launches.values()) // N_GUIDED)
+        GUIDED_WARMUP, {"K1": N_GUIDED, "K2": N_GUIDED,
+                        "K3": K3_SITES * N_GUIDED,
+                        "K3_hopper": K3_SITES * N_GUIDED,
+                        "K3_general": 0,
+                        "K4_fwd": 22 * groupnorm_cuda.FWD_KERNELS * N_GUIDED,
+                        "K4_bwd": 22 * groupnorm_cuda.BWD_KERNELS * N_GUIDED,
+                        "K5_fwd": vae_attention_cuda.fwd_launches(BATCH)
+                        * N_GUIDED,
+                        "K5_bwd": vae_attention_cuda.bwd_launches(BATCH)
+                        * N_GUIDED})
     layers = guided_layers(guidance, gen, BATCH, RES, dev)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
         rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
@@ -3981,33 +3923,28 @@ def main() -> int:
                "animation": launches_a, "anim_refine": launches_ar,
                "photo_recon": launches_p, "export": launches_x,
                "viewer": launches_v, "render_ply": launches_rp}
-    tool = {"fwd": "K1", "bwd": "K2", "conv3x3": "K3"}  # the tools' names
-    bench_launches = lambda k: {stage: v[tool[k]]
-                                for stage, v in launches_b.items()}
-    cli_launches = lambda k: {stage: v[k]
-                              for stage, v in launches_cli.items()}
-    real_launches = lambda k: {stage: v[k]
-                               for stage, v in launches_real.items()}
+    by_stage = lambda launches_s, k: {stage: v[k]
+                                      for stage, v in launches_s.items()}
     dp_launches = lambda k: {f"rank {r}": v[k]
                              for r, v in enumerate(launches_dp)}
     src = "gaussianip_tpu_torch/csrc/composite.cu"
     kernels = []
-    for kind_, name, rep, err in (
-            ("fwd", "K1 composite_fwd",
+    for kind_, k, name, rep, err in (
+            ("fwd", "K1", "K1 composite_fwd",
              "gaussianip_tpu/render/composite_pallas.py:221", "fwd_err"),
-            ("bwd", "K2 composite_bwd (per-gaussian reduction fused)",
+            ("bwd", "K2", "K2 composite_bwd (per-gaussian reduction fused)",
              "gaussianip_tpu/render/composite_pallas.py:246", "bwd_err")):
         b_ms, b_by = kernel_bound(info, kind_)
         b3_ms, b3_by = kernel_bound(info3, kind_)
         bp_ms, bp_by = kernel_bound(info_p, kind_)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches_g[kind_], "launches_by_path": {
-                **{k: v[kind_] for k, v in by_path.items()},
-                "cli": cli_launches(kind_),
-                "cli:real": real_launches(kind_),
-                "dp": dp_launches(kind_), "bench": bench_launches(kind_),
-                "weight_parity": real["weight_parity"][tool[kind_]]},
+            "launches": launches_g[k], "launches_by_path": {
+                **{p: v[k] for p, v in by_path.items()},
+                "cli": by_stage(launches_cli, k),
+                "cli:real": by_stage(launches_real, k),
+                "dp": dp_launches(k), "bench": by_stage(launches_b, k),
+                "weight_parity": real["weight_parity"][k]},
             "max_abs_err": info[err],
             "ms": info[f"{kind_}_ms"], "plain_ms": info[f"{kind_}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -4035,16 +3972,15 @@ def main() -> int:
         "name": "K3 conv3x3", "route": "cuda",
         "source": "gaussianip_tpu_torch/csrc/conv3x3.cu",
         "replaces": "gaussianip_tpu/ops/conv_pallas.py:78",
-        "launches": launches_g["conv3x3"], "launches_by_path": {
-            **{k: v["conv3x3"] for k, v in by_path.items()},
-            "cli": cli_launches("conv3x3"),
-            "cli:real": real_launches("conv3x3"),
-            "dp": dp_launches("conv3x3"),
-            "bench": bench_launches("conv3x3"),
+        "launches": launches_g["K3"], "launches_by_path": {
+            **{p: v["K3"] for p, v in by_path.items()},
+            "cli": by_stage(launches_cli, "K3"),
+            "cli:real": by_stage(launches_real, "K3"),
+            "dp": dp_launches("K3"), "bench": by_stage(launches_b, "K3"),
             "weight_parity": real["weight_parity"]["K3"]},
         "launches_by_variant": {
-            "hopper": launches_g["conv3x3_hopper"],
-            "general": launches_g["conv3x3_general"]},
+            "hopper": launches_g["K3_hopper"],
+            "general": launches_g["K3_general"]},
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "prev_ms": k3["prev_ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
@@ -4054,8 +3990,8 @@ def main() -> int:
             "per": f"refine denoise call ({K3_SITES} launches, CFG batch 8 "
                    f"at {HIRES // 8}^2 latents)",
             "launches_by_variant": {
-                "hopper": launches_r["conv3x3_hopper"],
-                "general": launches_r["conv3x3_general"]},
+                "hopper": launches_r["K3_hopper"],
+                "general": launches_r["K3_general"]},
             "max_abs_err": k3_r["max_abs_err"], "ms": k3_r["ms"],
             "prev_ms": k3_r["prev_ms"], "plain_ms": k3_r["plain_ms"],
             "bound_ms": k3_r["bound_ms"], "bound_by": k3_r["bound_by"],
@@ -4076,7 +4012,8 @@ def main() -> int:
         "per": "guided step (22 GroupNorms of the VAE encode, forward and "
                "backward)",
         **{k: round(v, 4) for k, v in k4["stage1_encode"].items()},
-        "launches": k4_launches,
+        "launches": {"fwd": launches_g["K4_fwd"],
+                     "bwd": launches_g["K4_bwd"]},
         "stage2_refine": {
             "per": "refine chunk (encode of 2 views at 1024^2 and decode of "
                    "2 latents at 128^2, forward)",
@@ -4091,7 +4028,8 @@ def main() -> int:
         "per": f"guided step (the encode's mid attention, {BATCH} views of "
                f"{(RES // 8) ** 2} tokens, forward and backward)",
         **{k: round(v, 4) for k, v in k5["sd15_encode"]["bf16"].items()},
-        "launches": k5_launches,
+        "launches": {"fwd": launches_g["K5_fwd"],
+                     "bwd": launches_g["K5_bwd"]},
         "sdxl_encode": {k: round(v, 4)
                         for k, v in k5["sdxl_encode"]["bf16"].items()},
         "stage2_refine": {

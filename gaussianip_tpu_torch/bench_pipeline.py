@@ -52,6 +52,8 @@ import torch
 
 import gaussianip_tpu_torch as gt
 
+from .kernels import count_launches
+
 N_POINTS = 100_000
 CAPACITY = 1 << 17  # scripts/bench_pipeline.py
 SEED = 42
@@ -167,27 +169,6 @@ def mean_ms(fn, device, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def kernel_counters() -> dict:
-    """Kernel name -> its wrapper, which counts its launches."""
-    from .ops import conv3x3_cuda as k3
-    from .render import composite_cuda as cc
-
-    return {"K1": cc.composite_fwd_cuda, "K2": cc.composite_bwd_gaussians_cuda,
-            "K3": k3.conv3x3_cuda, "K3_hopper": k3.conv3x3_hopper,
-            "K3_general": k3.conv3x3_general}
-
-
-def counted(fn, device):
-    """(fn(), each kernel's launches in this call alone)."""
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
-    sync(device)
-    out = fn()
-    sync(device)
-    return out, {k: c.launches for k, c in counters.items()}
-
-
 # --------------------------------------------------------------- stages
 
 
@@ -225,7 +206,7 @@ def bench_stage1(gs, sk, guidance, res: int = STAGE1_RES,
             losses.append(float(m["loss"]))
         return first, (time.perf_counter() - t0) / steps * 1e3, losses
 
-    (first, step_ms, losses), launches = counted(run, dev)
+    (first, step_ms, losses), launches = count_launches(run, dev)
     if not np.isfinite(losses).all():
         raise RuntimeError(f"stage 1: non-finite loss {losses}")
     return {"stage1_first_step_s": first, "stage1_step_ms": step_ms,
@@ -252,7 +233,7 @@ def bench_stage2(models, images, controls, contexts: dict, noise) -> dict:
             walls.append(time.perf_counter() - t0)
         return out
 
-    refined, launches = counted(run, dev)
+    refined, launches = count_launches(run, dev)
     if not bool(torch.isfinite(refined).all()):
         raise RuntimeError("stage 2: non-finite refined views")
     targets = crop_and_downsample(refined)
@@ -296,7 +277,7 @@ def bench_stage3(gs, lpips, targets, res: int = HIRES,
         sync(dev)
         return ts, time.perf_counter() - t0
 
-    (ts, wall), launches = counted(run, dev)
+    (ts, wall), launches = count_launches(run, dev)
     if not np.isfinite(losses).all():
         raise RuntimeError(f"stage 3: non-finite loss {losses}")
     return {"stage3_wall_s": wall, "stage3_steps": steps,
@@ -398,7 +379,7 @@ def bench_render(gs, res: int = HIRES, train_res: int = STAGE1_RES,
         r.update(_kernels_on(gs, cams, cfg, iters))
         return r
 
-    r, launches = counted(run, dev)
+    r, launches = count_launches(run, dev)
     r["splat_render_fwd_bwd_1024px_100k"] = 1e3 / r["fwd_bwd_ms"]
     r["render_res"] = res
     r["launches_render"] = launches
@@ -426,7 +407,7 @@ def bench_denoise(guidance, batch: int = 3 * STAGE1_BATCH,
         with torch.no_grad():
             return guidance.predict_noise(lat, control, t, ctx)
 
-    ms, launches = counted(lambda: mean_ms(call, dev, iters), dev)
+    ms, launches = count_launches(lambda: mean_ms(call, dev, iters), dev)
     return {"unet_denoise_ms": ms, "unet_denoise_steps_per_s": 1e3 / ms,
             "unet_denoise_batch": batch, "unet_denoise_latent": s,
             "launches_denoise": launches}

@@ -23,7 +23,6 @@ matmuls of the zero-padded input in float32, one cast at the end.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import math
@@ -39,7 +38,6 @@ from .. import _nvcc
 K3_BM = 128
 K3_BK = 64
 K3_BNS = (256, 160, 128)  # the kernel's instantiations (csrc/conv3x3.cu)
-H100_SMS = 132
 # the plan's cost model: the share of the tensor cores' peak a CTA reaches
 # at each tile width (wider tiles reuse more of each A tile), and the
 # split-K reduction's cost (partials written and read once in f32, one
@@ -147,10 +145,10 @@ def k3_plan(b: int, h: int, w: int, ci: int, co: int) -> K3Plan:
     for bn in K3_BNS:
         n_tiles = -(-co // bn)
         for splits in range(1, min(_MAX_SPLITS, k_steps) + 1):
-            waves = -(-(m_tiles * n_tiles * splits) // H100_SMS)
+            waves = -(-(m_tiles * n_tiles * splits) // _nvcc.H100_SMS)
             steps = -(-k_steps // splits)
             t = waves * steps * 2 * K3_BM * bn * K3_BK / (
-                _PEAK_BF16 / H100_SMS * _BN_EFF[bn])
+                _PEAK_BF16 / _nvcc.H100_SMS * _BN_EFF[bn])
             if splits > 1:
                 t += (2 * splits * 4 + 2) * m * co / _PEAK_BYTES + _LAUNCH_S
             if best is None or t < best[0] * (1 - 1e-9):
@@ -158,50 +156,32 @@ def k3_plan(b: int, h: int, w: int, ci: int, co: int) -> K3Plan:
     return best[1]
 
 
-@functools.cache
-def _lib():
-    lib = _nvcc.load("conv3x3")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                ptr]
-    lib.conv3x3_fwd.restype = i32
-    lib.conv3x3_hopper_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr] + \
-        [i32] * 10 + [ptr]
-    lib.conv3x3_hopper_fwd.restype = i32
-    lib.conv3x3_hopper_smem.argtypes = [i32]
-    lib.conv3x3_hopper_smem.restype = i32
-    return lib
+_LIB = _nvcc.Library("conv3x3", conv3x3_fwd="ppppiiiiip",
+                     conv3x3_hopper_fwd="pppppp" + "i" * 10 + "p",
+                     conv3x3_hopper_smem="i")
 
 
 def hopper_smem_bytes(bn: int) -> int:
     """Dynamic shared memory of the Hopper variant's instantiation for
     `bn` (its ring of stages, barriers and alignment slack)."""
-    return _lib().conv3x3_hopper_smem(bn)
+    return _LIB.conv3x3_hopper_smem(bn)
 
 
-def _check_x(x):
+def _check_x(x, align=0):
     if not x.is_cuda:
         raise ValueError("the CUDA 3x3 conv takes CUDA tensors")
-    if x.dim() != 4 or x.dtype != torch.bfloat16 \
-            or not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(
-            f"x: want bf16 [B, Ci, H, W] in channels_last memory, got "
-            f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    if x.dim() != 4:
+        raise ValueError(f"x: want [B, Ci, H, W], got {tuple(x.shape)}")
+    _nvcc.expect("x", x, torch.bfloat16, x.shape, x.device,
+                 channels_last=True, align=align)
 
 
-def _check(x, w_shape, w_packed, bias, co):
-    _check_x(x)
-    if w_packed.dtype != torch.bfloat16 or w_packed.device != x.device \
-            or not w_packed.is_contiguous() \
-            or tuple(w_packed.shape) != w_shape:
-        raise ValueError(f"w_packed: want contiguous bf16 {w_shape} on x's "
-                         f"device, got {w_packed.dtype} "
-                         f"{tuple(w_packed.shape)}")
-    if bias is not None and (bias.dtype != torch.float32
-                             or bias.device != x.device
-                             or tuple(bias.shape) != (co,)
-                             or not bias.is_contiguous()):
-        raise ValueError(f"bias: want contiguous f32 [{co}] on x's device")
+def _check(x, w_shape, w_packed, bias, co, align=0):
+    _check_x(x, align)
+    _nvcc.expect("w_packed", w_packed, torch.bfloat16, w_shape, x.device,
+                 align=align)
+    if bias is not None:
+        _nvcc.expect("bias", bias, torch.float32, (co,), x.device)
 
 
 def _out(x, co):
@@ -210,6 +190,7 @@ def _out(x, co):
                        memory_format=torch.channels_last)
 
 
+@_nvcc.counts("K3_general")
 def conv3x3_general(x, w_packed, bias=None) -> torch.Tensor:
     """The general variant (wmma, cp.async) on the current stream; x as
     `conv3x3_cuda`, w_packed [9 * Ci, Co]."""
@@ -217,24 +198,21 @@ def conv3x3_general(x, w_packed, bias=None) -> torch.Tensor:
     co = w_packed.shape[-1]
     _check(x, (9 * ci, co), w_packed, bias, co)
     y = _out(x, co)
-    err = _lib().conv3x3_fwd(
-        x.data_ptr(), w_packed.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), b, h, w, ci,
-        co, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_fwd launch failed: cudaError {err}")
-    conv3x3_general.launches += 1
+    _nvcc.launch(conv3x3_general, _LIB.conv3x3_fwd, x.data_ptr(),
+                 w_packed.data_ptr(),
+                 None if bias is None else bias.data_ptr(), y.data_ptr(), b,
+                 h, w, ci, co)
     return y
 
 
+@_nvcc.counts("K3_hopper")
 def conv3x3_hopper(x, w_packed, bias=None) -> torch.Tensor:
     """The Hopper variant (wgmma, TMA) on the current stream; x as
     `conv3x3_cuda` with Ci a multiple of 64, w_packed [Co, 9 * Ci]."""
     b, ci, h, w = x.shape
     co = w_packed.shape[0]
-    _check(x, (co, 9 * ci), w_packed, bias, co)
-    if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
-        raise ValueError("TMA needs 16-byte aligned x and w_packed")
+    # TMA reads x and w_packed from 16-byte aligned addresses
+    _check(x, (co, 9 * ci), w_packed, bias, co, align=16)
     plan = k3_plan(b, h, w, ci, co)
     if plan.m_tiles > 65535:
         raise ValueError(f"{plan.m_tiles} M tiles: the Hopper variant's grid "
@@ -244,17 +222,16 @@ def conv3x3_hopper(x, w_packed, bias=None) -> torch.Tensor:
     if plan.splits > 1:
         part = torch.empty((plan.splits, b * h * w, co), dtype=torch.float32,
                            device=x.device)
-    err = _lib().conv3x3_hopper_fwd(
-        _nvcc.tensor_map_encoder(), x.data_ptr(), w_packed.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), b, h, w, ci, co, plan.bn,
-        *plan.box, plan.splits, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_hopper_fwd failed: error {err}")
-    conv3x3_hopper.launches += 1
+    _nvcc.launch(conv3x3_hopper, _LIB.conv3x3_hopper_fwd,
+                 _nvcc.tensor_map_encoder(), x.data_ptr(),
+                 w_packed.data_ptr(),
+                 None if bias is None else bias.data_ptr(), y.data_ptr(),
+                 None if part is None else part.data_ptr(), b, h, w, ci, co,
+                 plan.bn, *plan.box, plan.splits)
     return y
 
 
+@_nvcc.counts("K3")
 def conv3x3_cuda(x, w_packed, bias=None) -> torch.Tensor:
     """K3 on the current stream: the variant `k3_variant` names. x: bf16
     [B, Ci, H, W] in channels_last memory; w_packed: bf16 from
@@ -267,11 +244,6 @@ def conv3x3_cuda(x, w_packed, bias=None) -> torch.Tensor:
     y = fn(x, w_packed, bias)
     conv3x3_cuda.launches += 1
     return y
-
-
-conv3x3_cuda.launches = 0
-conv3x3_general.launches = 0
-conv3x3_hopper.launches = 0
 
 
 def conv3x3_same(x, weight, bias=None) -> torch.Tensor:

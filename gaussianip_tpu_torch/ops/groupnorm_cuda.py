@@ -29,18 +29,17 @@ Function runs them on CPU tensors, so the tests reach K4's arithmetic.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
 import torch
 import torch.nn.functional as F
 
+from .. import _nvcc
 from ..diffusion.norm import group_norm, group_norm_stats
 
 K4_THREADS = 256  # a block's threads (csrc/groupnorm.cu)
-H100_SMS = 132
-K4_BLOCKS = 4 * H100_SMS  # the blocks a pass aims for: ~4 an SM
+K4_BLOCKS = 4 * _nvcc.H100_SMS  # the blocks a pass aims for: ~4 an SM
 K4_MAX_GROUPS = 512
 FWD_KERNELS = 2  # statistics pass, apply pass
 BWD_KERNELS = 2
@@ -116,32 +115,9 @@ def groupnorm_bwd_plain(dy, x, weight, bias, mean, rstd, groups: int,
 
 # ----------------------------------------------------------------- K4 ---
 
-@functools.cache
-def _lib():
-    from .. import _nvcc
-
-    lib = _nvcc.load("groupnorm")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.groupnorm_fwd.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 6 + [
-        ctypes.c_float, ptr]
-    lib.groupnorm_fwd.restype = i32
-    lib.groupnorm_bwd.argtypes = [i32, i32] + [ptr] * 9 + [i32] * 6 + [ptr]
-    lib.groupnorm_bwd.restype = i32
-    return lib
-
-
-def _check(name, t, dtype, shape, device, channels_last=False):
-    fmt = torch.channels_last if channels_last else torch.contiguous_format
-    where = ", 16-byte aligned in channels_last memory" if channels_last \
-        else ""
-    if t.device != device or t.dtype != dtype \
-            or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous(memory_format=fmt) \
-            or (channels_last and t.data_ptr() % 16):
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}"
-            f"{where}; got {t.dtype} {tuple(t.shape)} on {t.device} "
-            f"strides {t.stride()}")
+_LIB = _nvcc.Library("groupnorm",
+                     groupnorm_fwd="ii" + "p" * 7 + "i" * 6 + "fp",
+                     groupnorm_bwd="ii" + "p" * 9 + "i" * 6 + "p")
 
 
 def _geometry(x, groups: int):
@@ -159,71 +135,64 @@ def _geometry(x, groups: int):
                          f"{K4_THREADS * vec}, at most {K4_MAX_GROUPS} groups "
                          f"that divide it and B up to 65535; got B={b} C={c} "
                          f"G={groups}")
-    _check("x", x, x.dtype, x.shape, x.device, channels_last=True)
+    _nvcc.expect("x", x, x.dtype, x.shape, x.device, channels_last=True,
+                 align=16)
     return b, c, h, w, plan(b, c, h, w)
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _check_params(x, weight, bias):
+    for name, t in (("weight", weight), ("bias", bias)):
+        _nvcc.expect(name, t, torch.float32, (x.shape[1],), x.device)
 
 
+@_nvcc.counts("K4_fwd")
 def groupnorm_fwd_cuda(x, weight, bias, groups: int, eps: float,
                        silu: bool):
     """K4's forward on the current stream: (y, mean, rstd) as
     `groupnorm_fwd_plain`. x as the module docstring; weight, bias
     contiguous float32 [C] on x's device."""
     b, c, h, w, p = _geometry(x, groups)
-    for name, t in (("weight", weight), ("bias", bias)):
-        _check(name, t, torch.float32, (c,), x.device)
+    _check_params(x, weight, bias)
     y = torch.empty_like(x)
     part = torch.empty((b, groups, 2, p.blocks), dtype=torch.float32,
                        device=x.device)
     mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    err = _lib().groupnorm_fwd(
-        int(x.dtype == torch.bfloat16), int(silu), x.data_ptr(),
-        weight.data_ptr(), bias.data_ptr(), y.data_ptr(), part.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, groups, p.blocks,
-        p.pixels, eps, _stream())
-    if err != 0:
-        raise RuntimeError(f"groupnorm_fwd failed: error {err}")
-    groupnorm_fwd_cuda.launches += FWD_KERNELS
+    _nvcc.launch(groupnorm_fwd_cuda, _LIB.groupnorm_fwd,
+                 int(x.dtype == torch.bfloat16), int(silu), x.data_ptr(),
+                 weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                 part.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, h * w,
+                 c, groups, p.blocks, p.pixels, eps, count=FWD_KERNELS)
     return y, mean, rstd
 
 
+@_nvcc.counts("K4_bwd")
 def groupnorm_bwd_cuda(dy, x, weight, bias, mean, rstd, groups: int,
                        silu: bool, need_wb: bool):
     """K4's backward on the current stream: (dx, dweight, dbias) as
     `groupnorm_bwd_plain`; dweight and dbias sum the kernel's per-block
     partials over (batch, block) when `need_wb`."""
     b, c, h, w, p = _geometry(x, groups)
-    _check("dy", dy, x.dtype, x.shape, x.device, channels_last=True)
-    for name, t in (("weight", weight), ("bias", bias)):
-        _check(name, t, torch.float32, (c,), x.device)
+    _nvcc.expect("dy", dy, x.dtype, x.shape, x.device, channels_last=True,
+                 align=16)
+    _check_params(x, weight, bias)
     for name, t in (("mean", mean), ("rstd", rstd)):
-        _check(name, t, torch.float32, (b, groups), x.device)
+        _nvcc.expect(name, t, torch.float32, (b, groups), x.device)
     dx = torch.empty_like(x)
     part = torch.empty((b, groups, 2, p.blocks), dtype=torch.float32,
                        device=x.device)
     cpart = torch.empty((b * p.blocks, 2, c), dtype=torch.float32,
                         device=x.device) if need_wb else None
-    err = _lib().groupnorm_bwd(
-        int(x.dtype == torch.bfloat16), int(silu), x.data_ptr(),
-        dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        None if cpart is None else cpart.data_ptr(), b, h * w, c, groups,
-        p.blocks, p.pixels, _stream())
-    if err != 0:
-        raise RuntimeError(f"groupnorm_bwd failed: error {err}")
-    groupnorm_bwd_cuda.launches += BWD_KERNELS
+    _nvcc.launch(groupnorm_bwd_cuda, _LIB.groupnorm_bwd,
+                 int(x.dtype == torch.bfloat16), int(silu), x.data_ptr(),
+                 dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 weight.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+                 part.data_ptr(), None if cpart is None else cpart.data_ptr(),
+                 b, h * w, c, groups, p.blocks, p.pixels, count=BWD_KERNELS)
     if not need_wb:
         return dx, None, None
     sums = cpart.sum(dim=0)
     return dx, sums[1], sums[0]
-
-
-groupnorm_fwd_cuda.launches = 0
-groupnorm_bwd_cuda.launches = 0
 
 
 class GroupNormSiLU(torch.autograd.Function):

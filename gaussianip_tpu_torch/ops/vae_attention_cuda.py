@@ -33,8 +33,6 @@ tests reach K5's arithmetic.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -101,16 +99,9 @@ def attention_bwd_plain(do, q, k, v, o, lse):
 
 # ----------------------------------------------------------------- K5 ---
 
-@functools.cache
-def _lib():
-    lib = _nvcc.load("vae_attention")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k5_scores.argtypes = [ptr, i32, i32] + [ptr] * 8 + [
-        i64, i32, i32, i32, i32, ctypes.c_float, ctypes.c_float, ptr]
-    lib.k5_scores.restype = i32
-    lib.k5_rowdot.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr]
-    lib.k5_rowdot.restype = i32
-    return lib
+_LIB = _nvcc.Library("vae_attention",
+                     k5_scores="pii" + "p" * 8 + "liiiiffp",
+                     k5_rowdot="ippplip")
 
 
 def _check(*named):
@@ -127,34 +118,29 @@ def _check(*named):
         raise ValueError(f"K5 takes d a multiple of 32 up to {K5_MAX_D} and "
                          f"B up to 65535; got B={b} N={n} d={d}")
     for name, t in named:
-        if t.device != q.device or t.dtype != q.dtype \
-                or t.shape != q.shape or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {q.dtype} "
-                             f"{tuple(q.shape)} on {q.device}; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device} strides "
-                             f"{t.stride()}")
+        _nvcc.expect(name, t, q.dtype, q.shape, q.device)
     return b, n, d
 
 
 def _scores_launch(mode, q, k, do, v, lse, delta, p, ds, view):
     b, n, d = q.shape
     scale = _scale(d)
-    err = _lib().k5_scores(
-        _nvcc.tensor_map_encoder(), mode, int(q.dtype == torch.bfloat16),
-        q.data_ptr(), k.data_ptr(), None if do is None else do.data_ptr(),
+    _nvcc.launch(
+        attention_bwd_cuda if mode == GRADS else attention_fwd_cuda,
+        _LIB.k5_scores, _nvcc.tensor_map_encoder(), mode,
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        None if do is None else do.data_ptr(),
         None if v is None else v.data_ptr(), lse.data_ptr(),
         None if delta is None else delta.data_ptr(),
         None if p is None else p.data_ptr(),
         None if ds is None else ds.data_ptr(), _ld(n), b, n, d, view,
-        scale * math.log2(math.e), scale,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"k5_scores (mode {mode}) failed: error {err}")
+        scale * math.log2(math.e), scale)
 
 
+@_nvcc.counts("K5_fwd")
 def attention_fwd_cuda(q, k, v):
     """K5's forward on the current stream: (o, lse) as
-    `attention_fwd_plain`."""
+    `attention_fwd_plain`; `fwd_launches(B)` kernels."""
     b, n, d = _check(("q", q), ("k", k), ("v", v))
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     _scores_launch(STATS, q, k, None, None, lse, None, None, None, 0)
@@ -163,24 +149,19 @@ def attention_fwd_cuda(q, k, v):
     for i in range(b):
         _scores_launch(PROBS, q, k, None, None, lse, None, p, None, i)
         torch.mm(p[:, :n], v[i], out=o[i])
-    attention_fwd_cuda.launches += fwd_launches(b)
     return o, lse
 
 
+@_nvcc.counts("K5_bwd")
 def attention_bwd_cuda(do, q, k, v, o, lse):
     """K5's backward on the current stream: (dq, dk, dv) as
-    `attention_bwd_plain`."""
+    `attention_bwd_plain`; `bwd_launches(B)` kernels."""
     b, n, d = _check(("q", q), ("do", do), ("k", k), ("v", v), ("o", o))
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, n) \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise ValueError(f"lse: want contiguous float32 {(b, n)} on "
-                         f"{q.device}; got {lse.dtype} {tuple(lse.shape)}")
+    _nvcc.expect("lse", lse, torch.float32, (b, n), q.device)
     delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    err = _lib().k5_rowdot(int(q.dtype == torch.bfloat16), do.data_ptr(),
-                           o.data_ptr(), delta.data_ptr(), b * n, d,
-                           torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"k5_rowdot failed: error {err}")
+    _nvcc.launch(attention_bwd_cuda, _LIB.k5_rowdot,
+                 int(q.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+                 delta.data_ptr(), b * n, d)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     p = torch.empty((n, _ld(n)), dtype=q.dtype, device=q.device)
     ds = torch.empty_like(p)
@@ -190,12 +171,7 @@ def attention_bwd_cuda(do, q, k, v, o, lse):
         torch.mm(pn.t(), do[i], out=dv[i])
         torch.mm(dsn, k[i], out=dq[i])
         torch.mm(dsn.t(), q[i], out=dk[i])
-    attention_bwd_cuda.launches += bwd_launches(b)
     return dq, dk, dv
-
-
-attention_fwd_cuda.launches = 0
-attention_bwd_cuda.launches = 0
 
 
 class VAEAttentionFn(torch.autograd.Function):

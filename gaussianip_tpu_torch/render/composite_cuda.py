@@ -27,11 +27,9 @@ not gated at the 0.99 cap. It is pulled back to d_packed by autograd of
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
+from .. import _nvcc
 from .preprocess import gaussian_power_coeffs
 
 # the 1/255 gate on alpha as both K1/K2 and the plain versions decide it:
@@ -210,28 +208,8 @@ def composite_bwd_gaussians_plain(data, packed, gidx, tile_of, starts,
 
 # --------------------------------------------------------------- kernels ---
 
-@functools.cache
-def _lib():
-    from .. import _nvcc
-
-    lib = _nvcc.load("composite")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.composite_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64,
-                                  ptr]
-    lib.composite_fwd.restype = i32
-    lib.composite_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                  i32, i32, i32, i64, i64, ptr]
-    lib.composite_bwd.restype = i32
-    return lib
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {shape} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+_LIB = _nvcc.Library("composite", composite_fwd="pppppiilp",
+                     composite_bwd="ppppppppiiillp")
 
 
 def _check_inputs(data, starts, counts, tile, order):
@@ -243,13 +221,14 @@ def _check_inputs(data, starts, counts, tile, order):
         raise ValueError(f"data: want [B, 16, E], got {tuple(data.shape)}")
     b, _, e = data.shape
     nt = starts.shape[-1]
-    _check("data", data, torch.float32, (b, 16, e), data.device)
-    _check("starts", starts, torch.int32, (b, nt), data.device)
-    _check("counts", counts, torch.int32, (b, nt), data.device)
-    _check("order", order, torch.int32, (b * nt,), data.device)
+    _nvcc.expect("data", data, torch.float32, (b, 16, e), data.device)
+    _nvcc.expect("starts", starts, torch.int32, (b, nt), data.device)
+    _nvcc.expect("counts", counts, torch.int32, (b, nt), data.device)
+    _nvcc.expect("order", order, torch.int32, (b * nt,), data.device)
     return b, nt, e
 
 
+@_nvcc.counts("K1")
 def composite_fwd_cuda(data, starts, counts, order,
                        tile: int = 16) -> torch.Tensor:
     """K1 on the current stream. Segments must lie inside [0, E); `order`
@@ -258,19 +237,13 @@ def composite_fwd_cuda(data, starts, counts, order,
     b, nt, e = _check_inputs(data, starts, counts, tile, order)
     out = torch.empty((b, nt, 8, tile * tile), dtype=torch.float32,
                       device=data.device)
-    err = _lib().composite_fwd(
-        data.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        order.data_ptr(), out.data_ptr(), b, nt, e,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
-    composite_fwd_cuda.launches += 1
+    _nvcc.launch(composite_fwd_cuda, _LIB.composite_fwd, data.data_ptr(),
+                 starts.data_ptr(), counts.data_ptr(), order.data_ptr(),
+                 out.data_ptr(), b, nt, e)
     return out
 
 
-composite_fwd_cuda.launches = 0
-
-
+@_nvcc.counts("K2")
 def composite_bwd_gaussians_cuda(data, packed, gidx, starts, counts, order,
                                  out, gout, n_tiles_x: int,
                                  tile: int = 16) -> torch.Tensor:
@@ -281,23 +254,17 @@ def composite_bwd_gaussians_cuda(data, packed, gidx, starts, counts, order,
     if n_tiles_x <= 0 or nt % n_tiles_x:
         raise ValueError(f"{nt} tiles are not rows of {n_tiles_x}")
     n = packed.shape[1]
-    _check("packed", packed, torch.float32, (b, n, 10), data.device)
-    _check("gidx", gidx, torch.int64, (b, e), data.device)
-    _check("out", out, torch.float32, (b, nt, 8, tile * tile), data.device)
-    _check("gout", gout, torch.float32, (b, nt, 8, tile * tile), data.device)
+    dev = data.device
+    _nvcc.expect("packed", packed, torch.float32, (b, n, 10), dev)
+    _nvcc.expect("gidx", gidx, torch.int64, (b, e), dev)
+    _nvcc.expect("out", out, torch.float32, (b, nt, 8, tile * tile), dev)
+    _nvcc.expect("gout", gout, torch.float32, (b, nt, 8, tile * tile), dev)
     d_packed = torch.zeros_like(packed)
-    err = _lib().composite_bwd(
-        data.data_ptr(), starts.data_ptr(), order.data_ptr(), out.data_ptr(),
-        gout.data_ptr(), packed.data_ptr(), gidx.data_ptr(),
-        d_packed.data_ptr(), b, nt, n_tiles_x, e, n,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
-    composite_bwd_gaussians_cuda.launches += 1
+    _nvcc.launch(composite_bwd_gaussians_cuda, _LIB.composite_bwd,
+                 data.data_ptr(), starts.data_ptr(), order.data_ptr(),
+                 out.data_ptr(), gout.data_ptr(), packed.data_ptr(),
+                 gidx.data_ptr(), d_packed.data_ptr(), b, nt, n_tiles_x, e, n)
     return d_packed
-
-
-composite_bwd_gaussians_cuda.launches = 0
 
 
 def heaviest_first(counts) -> torch.Tensor:

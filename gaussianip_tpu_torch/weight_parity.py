@@ -197,22 +197,19 @@ def compare(args, unet_cfg=None, vae_cfg=None, cn_cfg=None,
     outputs that failed. The configs default to the published widths."""
     import gaussianip_tpu_torch as gt
 
+    from .kernels import count_launches
     from .launch import _check_args
-    from .ops import conv3x3_cuda as k3
-    from .render import composite_cuda as cc
 
     _check_args(args)
     gt.set_precision_policy()  # float32 is float32 on the card too
     device = args.device
     ref = dict(np.load(args.ref)) if args.ref else fixed_inputs()
     x = {k: ref[k] for k in ("lat", "img", "ctx", "cond", "ts")}
-    counters = {"K1": cc.composite_fwd_cuda,
-                "K2": cc.composite_bwd_gaussians_cuda, "K3": k3.conv3x3_cuda}
-    for c in counters.values():
-        c.launches = 0
     models = load_models(args, device, unet_cfg, vae_cfg, cn_cfg, cn_embed)
+    outs, launches = count_launches(
+        lambda: outputs(x, device=device, **models), device)
     fails = 0
-    for name, got in outputs(x, device=device, **models).items():
+    for name, got in outs.items():
         if name not in ref:
             print(f"{name}: no recording, computed shape {got.shape}")
             continue
@@ -227,8 +224,7 @@ def compare(args, unet_cfg=None, vae_cfg=None, cn_cfg=None,
             note = f" (bfloat16, max |ref| {scale:.2e})"
         fails += 0 if ok else 1
         print(f"{name}: max_abs_err={err:.2e}{note} {'OK' if ok else 'FAIL'}")
-    print("launches " + json.dumps({k: c.launches
-                                    for k, c in counters.items()}))
+    print("launches " + json.dumps(launches))
     return fails
 
 

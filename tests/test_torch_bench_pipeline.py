@@ -109,7 +109,8 @@ def stack():
     return sk, gs, guidance
 
 
-LAUNCH_KEYS = {"K1", "K2", "K3", "K3_hopper", "K3_general"}
+LAUNCH_KEYS = {"K1", "K2", "K3", "K3_hopper", "K3_general", "K4_fwd",
+               "K4_bwd", "K5_fwd", "K5_bwd"}
 
 
 def test_bench_stage1(stack):
