@@ -26,7 +26,9 @@ VAE's attention shapes (the SDXL and SD1.5 encodes forward and backward,
 a refine chunk forward, tiny ragged ones; bf16 and float32) and times it
 beside its bound and SDPA, and drives stage-1 training with the real
 AHDS / ANPG guidance (K4's launches counted: 22 GroupNorms a step; K5's:
-one attention forward and backward a step); the
+one attention forward and backward a step), its ControlNet + UNet call
+replayed from a CUDA graph (guidance/graph.py) and held against the eager
+call on two input sets (check_denoise_graph); the
 tiny test stack on the card runs the general variant. Then, from the stub-trained, densified and pruned state, the rest
 of the avatar path: the .ply handoff and the 32 refine views at 1024^2,
 K3 against its plain version at every conv shape of a refine denoise call
@@ -95,6 +97,7 @@ import time
 
 import numpy as np
 
+from gaussianip_tpu_torch.guidance.graph import USE as DENOISE_GRAPH_USE
 from gaussianip_tpu_torch.kernels import count_launches
 
 N_STEPS = 25
@@ -146,6 +149,14 @@ K4_EXTRA = (((4, 16, 64, 64), 8, True, "bf16"),
 # depth costs ~2% (the same comparison with bf16 on the CPU), a layout or
 # indexing fault O(1)
 GUIDANCE_REF_TOL = 6e-2
+# the denoise replayed from its CUDA graph against the eager call, worst
+# |diff| over the largest |value|: the same kernels on the same inputs give
+# 0; a library that chose another algorithm under capture stays within
+# bf16's rounding
+DENOISE_GRAPH_TOL = 1e-2
+# idle seconds at each end of a profile whose device ops are counted one by
+# one (check_denoise_graph)
+PROFILE_MARGIN_S = 0.05
 # f32 operations (an FMA counts 2) per (instance, pixel) pair up to the
 # pixel's last contributor, as csrc/composite.cu computes the function with
 # K1 at 2 and K2 at 4 pixels per thread. K1: the power from the column
@@ -734,17 +745,23 @@ def view_aux(b: int, dev):
 
 def collect_conv_sites(models, fn):
     """Every stride-1 Conv3x3 call in `models` while fn() runs, in call
-    order, as (module, input shape), from forward pre-hooks."""
+    order, as (module, input shape), from forward pre-hooks; a forward
+    that a CUDA graph's capture runs (the guidance denoise's first call)
+    calls nothing on the device and is left out."""
     import torch
     from gaussianip_tpu_torch.ops.conv3x3 import Conv3x3
+    from gaussianip_tpu_torch.utils.profiling import capturing
 
     sites, hooks = [], []
+
+    def hook(mod, args):
+        if not capturing():
+            sites.append((mod, tuple(args[0].shape)))
+
     for model in models:
         for m in model.modules():
             if isinstance(m, Conv3x3) and m.stride == 1:
-                hooks.append(m.register_forward_pre_hook(
-                    lambda mod, args: sites.append((mod,
-                                                    tuple(args[0].shape)))))
+                hooks.append(m.register_forward_pre_hook(hook))
     try:
         fn()
         torch.cuda.synchronize()
@@ -1291,6 +1308,138 @@ def guided_layers(guidance, gen, batch: int, res: int, dev="cuda"):
         out[f"{name}_ms"], out[f"{name}_enqueue_ms"] = cuda_ms(
             fn, 3, 1, enqueue=True)
         out[f"{name}_device_ms"] = device_ms(fn)
+    return out
+
+
+def check_denoise_graph(guidance, gen, batch: int, res: int, dev="cuda",
+                        reps: int = 10) -> dict:
+    """The guidance denoise from its CUDA graph (guidance/graph.py) against
+    the eager predict_noise at the guided step's shapes (CFG batch 3 x
+    batch at (res / 8)^2 latents): a fresh DenoiseGraph captures on one
+    input set and replays two others, each held against predict_noise on
+    the same inputs (a stale static buffer fails the second). Counts the K3
+    launches of a replay through the counters (which add the capture's
+    count at each replay: no Python runs) and of an eager call (each launch
+    counted as it is made), and the graph's use (graph.USE); reads the
+    peak memory of the capture, the device ms a call of the eager call and
+    of a replay over `reps` calls back to back (CUDA events), and the host
+    us of each (the median of `reps` calls, each on an idle device). Then
+    profiles one eager call and one replay on the same inputs, the eager
+    call's inputs copied as the replay copies them into its buffers, and
+    holds every device op the profiler lists (kernels and copies by name,
+    memsets together) at the same count in both: a capture that dropped or
+    rerouted a kernel fails here, where the counters could not see it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussianip_tpu_torch.guidance.graph import DenoiseGraph
+
+    ctx = guidance._context(view_aux(batch, dev), batch)
+
+    def inputs():
+        return (torch.randn(guidance.latent_shape(3 * batch), generator=gen,
+                            device=dev),
+                torch.rand((3 * batch, 3, res, res), generator=gen,
+                           device=dev),
+                torch.randint(20, 800, (3 * batch,), generator=gen,
+                              device=dev),
+                ctx + 0.1 * torch.randn(ctx.shape, generator=gen,
+                                        device=dev).to(ctx.dtype))
+
+    graphs = DenoiseGraph()
+    sets = [inputs() for _ in range(3)]
+    use = dict(DENOISE_GRAPH_USE)
+    diffs, rel, ran = [], [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, first = count_launches(lambda: graphs(guidance.predict_noise,
+                                                 *sets[0]))
+        peak = torch.cuda.max_memory_allocated()
+        for args in sets[1:]:
+            got, n = count_launches(
+                lambda: graphs(guidance.predict_noise, *args).clone())
+            want = guidance.predict_noise(*args)
+            diffs.append(float((got - want).abs().max()))
+            rel.append(diffs[-1] / float(want.abs().max()))
+            ran.append(n)
+        replay = lambda: graphs(guidance.predict_noise, *sets[1])
+        eager = lambda: guidance.predict_noise(*sets[1])
+        _, eager_n = count_launches(eager)
+        times = {}
+        for name, fn in (("eager", eager), ("replay", replay)):
+            times[f"{name}_device_ms"] = round(cuda_ms(fn, reps, 1), 3)
+            host = []
+            for _ in range(reps):  # each call's enqueue on an idle device
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append(time.perf_counter() - t0)
+            times[f"{name}_host_us"] = round(float(np.median(host)) * 1e6,
+                                             1)
+        cuda = torch.autograd.DeviceType.CUDA
+
+        def listed(fn):
+            """({device op: its count} in one call of fn, host us). The
+            device idles PROFILE_MARGIN_S inside the profile before and
+            after the call: the profiler drops device records that its
+            clock places before the window opens, and without the margin
+            the call's first records (its copies, the time embedding)
+            went missing now and then. The profiler names a graph's memset
+            nodes by their element width ("memset32") and an eager one
+            "Memset (Device)": memsets count as one op, every kernel and
+            copy by its own name."""
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                t0 = time.perf_counter()
+                fn()
+                us = (time.perf_counter() - t0) * 1e6
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+            ops = {}
+            for e in prof.key_averages():
+                if e.device_type == cuda:
+                    k = "memset" if e.key.lower().startswith("memset") \
+                        else e.key
+                    ops[k] = ops.get(k, 0) + e.count
+            return ops, us
+
+        ops_e, _ = listed(lambda: guidance.predict_noise(
+            *(a.clone() for a in sets[1])))
+        ops_r, profiled_us = listed(replay)
+    is_k3 = lambda k: "conv3x3_wgmma_kernel" in k or "splitk_sum" in k
+    differ = {k: (ops_e.get(k, 0), ops_r.get(k, 0))
+              for k in sorted(ops_e.keys() | ops_r.keys())
+              if ops_e.get(k, 0) != ops_r.get(k, 0)}
+    use = {k: v - use[k] for k, v in DENOISE_GRAPH_USE.items()}
+    out = {"max_abs_diff": diffs, "max_rel_diff": rel,
+           "first_call_launches": first, "eager_launches": eager_n,
+           "replay_launches": ran, "use": use,
+           "capture_peak_bytes": peak,
+           "profiler_ops_eager": sum(ops_e.values()),
+           "profiler_ops_replay": sum(ops_r.values()),
+           "profiler_k3_eager": sum(c for k, c in ops_e.items() if is_k3(k)),
+           "profiler_k3_replay": sum(c for k, c in ops_r.items() if is_k3(k)),
+           "profiler_ops_differ": {k[:80]: v for k, v in differ.items()},
+           **times, "replay_host_us_profiled": round(profiled_us, 1)}
+    log("denoise_graph", **out)
+    for i, n in enumerate([eager_n, first] + ran):
+        if n["K3"] != K3_SITES or n["K3_hopper"] != K3_SITES:
+            raise AssertionError(f"denoise_graph: call {i} counted {n}, "
+                                 f"want {K3_SITES} K3 (Hopper)")
+    if differ or not out["profiler_k3_replay"]:
+        raise AssertionError(f"denoise_graph: the profiler's device ops of "
+                             f"a replay differ from an eager call's "
+                             f"(eager, replay): {differ}")
+    # 2 checked replays, cuda_ms's warm-up and reps, reps timed on the
+    # host, the profiled one
+    if use != {"captures": 1, "replays": 2 * reps + 4, "eager": 0}:
+        raise AssertionError(f"denoise_graph: used {use}")
+    if not max(rel) <= DENOISE_GRAPH_TOL:
+        raise AssertionError(f"denoise_graph: replay vs eager {rel} > "
+                             f"{DENOISE_GRAPH_TOL} of the largest |value|")
     return out
 
 
@@ -1953,11 +2102,19 @@ def anim_refine_phase(guidance, motion, gen, dev="cuda"):
         return state
 
     torch.cuda.reset_peak_memory_stats()
+    use0 = dict(DENOISE_GRAPH_USE)
     ts, launches = count_launches(run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"K1": n_steps, "K2": n_steps, "K3": K3_SITES * n_steps,
             "K3_hopper": K3_SITES * n_steps, "K3_general": 0}
     check_launches("anim_refine", launches, want)
+    # 64^2 latents: the denoise replays from its CUDA graph (a signature
+    # that stage 1 did not capture is captured once here)
+    use = {k: v - use0[k] for k, v in DENOISE_GRAPH_USE.items()}
+    log("denoise_graph_use", path="anim_refine", **use)
+    if use["eager"] or use["captures"] > 1 \
+            or use["captures"] + use["replays"] != n_steps:
+        raise AssertionError(f"anim_refine: the denoise graph's use {use}")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"anim_refine: non-finite loss {losses}")
     m_xyz = float(ts.opt.m["xyz"][:PTS_NUM].abs().max())
@@ -3805,7 +3962,8 @@ def main() -> int:
     from gaussianip_tpu_torch.ops import groupnorm_cuda
     from gaussianip_tpu_torch.ops import vae_attention_cuda
     # a step's encode: 22 GroupNorms (K4) and one attention over BATCH
-    # views (K5), forward and backward
+    # views (K5), forward and backward; the denoise replays its graph
+    use_g = dict(DENOISE_GRAPH_USE)
     ts_g, cfg_g, launches_g, med_g = train_phase(
         "stage1_guided", gs0, sk, guidance, gen, cam_cfg, rcfg, N_GUIDED,
         GUIDED_WARMUP, {"K1": N_GUIDED, "K2": N_GUIDED,
@@ -3818,6 +3976,12 @@ def main() -> int:
                         * N_GUIDED,
                         "K5_bwd": vae_attention_cuda.bwd_launches(BATCH)
                         * N_GUIDED})
+    use = {k: v - use_g[k] for k, v in DENOISE_GRAPH_USE.items()}
+    log("denoise_graph_use", path="stage1_guided", **use)
+    # conv_sites' guidance call captured the step's signature
+    if use != {"captures": 0, "replays": N_GUIDED, "eager": 0}:
+        raise AssertionError(f"stage1_guided: the denoise graph's use {use}")
+    dg = check_denoise_graph(guidance, gen, BATCH, RES, dev)
     layers = guided_layers(guidance, gen, BATCH, RES, dev)
     log("guided_layers", **{k: round(v, 3) for k, v in layers.items()},
         rest_of_step_ms=round(med_g - layers["vae_fwd_bwd_ms"]
@@ -3986,6 +4150,15 @@ def main() -> int:
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
         "per": f"guided step ({K3_SITES} launches)",
+        "replayed": "where the guidance denoise replays its CUDA graph "
+                    "(64^2 latents or less on the card: stage1_guided, "
+                    "anim_refine, cli, cli:real, dp), K3's launches are "
+                    "the capture's count, added at each replay; "
+                    "check_denoise_graph holds the device ops the "
+                    "profiler lists in a replay equal to an eager call's",
+        "replay_vs_eager_profiler": {
+            k: dg[f"profiler_{k}"] for k in ("k3_eager", "k3_replay",
+                                             "ops_eager", "ops_replay")},
         "stage2_refine": {
             "per": f"refine denoise call ({K3_SITES} launches, CFG batch 8 "
                    f"at {HIRES // 8}^2 latents)",

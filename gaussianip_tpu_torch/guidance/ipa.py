@@ -9,6 +9,10 @@ gradient is that gradient; the gradient reaches rgb only through the VAE
 encode. The random draws come from `sample_noise`, in a dict the caller
 passes back.
 
+At 64^2 latents on a card the ControlNet + UNet call replays from a CUDA
+graph captured once per input signature (guidance/graph.py); larger
+latents and CPU tensors run it eagerly.
+
 The conditioning is the 77 text tokens of the view's prompt with the 4
 identity tokens of ProjPlusModel appended (81 tokens), for both the UNet
 (which splits the identity tokens off to its IP projections) and the
@@ -37,6 +41,7 @@ from .ahds import (
     sds_grad,
     sds_loss,
 )
+from .graph import DenoiseGraph
 from .prompts import PromptEmbeddings
 
 
@@ -70,7 +75,10 @@ class GuidanceModels(NamedTuple):
 
 class AHDSGuidance:
     """Guidance for system/stage1.make_train_step. The models are frozen:
-    their parameters take no gradient."""
+    their parameters take no gradient. `__call__` runs `predict_noise`
+    through `denoise_graph` (guidance/graph.py), whose graphs read the
+    parameters by address: a weight changed in place is seen by the next
+    replay, a parameter rebound to a new tensor is not."""
 
     def __init__(self, models: GuidanceModels,
                  prompt_embeds: PromptEmbeddings,
@@ -87,6 +95,7 @@ class AHDSGuidance:
         dev = next(models.unet.parameters()).device
         self.ddim = ddim or make_ddim_schedule(device=dev)
         self.ahds = ahds or make_ahds_schedule()
+        self.denoise_graph = DenoiseGraph()
 
     def latent_shape(self, batch_size: int) -> tuple:
         vcfg = self.models.vae.cfg
@@ -173,10 +182,10 @@ class AHDSGuidance:
             added = self._added_cond(view_aux)
             if added is not None:
                 added = tuple(x[:n_way * b] for x in added)
-            pred = self.predict_noise(
-                torch.cat([latents_noisy] * n_way), torch.cat([control]
-                                                              * n_way),
-                torch.cat([t] * n_way), context, added)
+            pred = self.denoise_graph(
+                self.predict_noise, torch.cat([latents_noisy] * n_way),
+                torch.cat([control] * n_way), torch.cat([t] * n_way),
+                context, added)
             ac = self.ddim.alphas_cumprod
             if cfg.use_anpg:
                 e_pos, e_neg, e_null = pred.chunk(3)

@@ -1,9 +1,12 @@
 """Tracing of the port:
   * span(name): a named span at a layer boundary of a step. It records
     only while a torch profiler runs (`torch.profiler.profile`, `trace`
-    below); otherwise it is one check and nothing else;
+    below) and the current CUDA stream captures no graph (a replayed
+    graph runs kernels, not spans); otherwise it is a check or two and
+    nothing else;
   * spans(): the recorded spans with their device milliseconds, read once
     and emptied;
+  * capturing(): whether the current CUDA stream is capturing a graph;
   * trace(logdir): a torch.profiler trace of a region (CPU, plus CUDA when
     a card is present), written to <logdir>/trace.json for Perfetto or
     chrome://tracing, the spans among its host ranges.
@@ -110,13 +113,20 @@ class _Span:
         return False
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def span(name: str, step: Optional[int] = None, device=None, split=None):
-    """A context manager: the span `name` while a torch profiler runs, and
-    nothing otherwise. `step` (the step index) and `device` (events are
-    recorded on a CUDA device) default to the enclosing span's. `split`
+    """A context manager: the span `name` while a torch profiler runs and
+    the current CUDA stream captures no graph, and nothing otherwise.
+    `step` (the step index) and `device` (events are recorded on a CUDA
+    device) default to the enclosing span's. `split`
     (tensor, before, after) divides the span where the tensor's gradient
     is complete (see the module's docstring)."""
-    if not _profiler_enabled():
+    if not _profiler_enabled() or capturing():
         return _OFF
     return _Span(name, step, device, split)
 
