@@ -1,16 +1,21 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          (every phase)
+    python3 chip_smoke.py flux     (the build, the scene and the FLUX phase)
 
 Builds the kernels from the checkout (gaussianip_tpu_torch/csrc/: K1 and
 K2, the compositor forward and backward with the per-gaussian gradient
 reduction fused in, in composite.cu; K3, the 3x3 conv, in conv3x3.cu;
 K4, the VAE's GroupNorm with the SiLU fused in, in groupnorm.cu; K5,
-the VAE's single-head attention, in vae_attention.cu),
-holds K1/K2 against their plain PyTorch versions at the stage-1 shapes (4
-cameras, 512x512, capacity 524288, d_max=16) and times them, prints the
-tiles' segment lengths, checks the tiled renderer against the
-dense reference compositor, and drives stage-1
+the VAE's single-head attention, in vae_attention.cu), builds the
+full-size scene and drives three guided stage-1 steps on the FLUX.1-dev
+stack at its published widths (`flux_phase`: the parameters' bytes by
+dtype, the hand-written kernels' launches, the spans' device ms, the
+peak memory; `python3 chip_smoke.py flux` stops there), holds K1/K2
+against their plain PyTorch versions at the stage-1 shapes (4 cameras,
+512x512, capacity 524288, d_max=16) and times them, prints the tiles'
+segment lengths, checks the tiled
+renderer against the dense reference compositor, and drives stage-1
 training with stub guidance at the recipe's sizes (configs/exp.yaml:
 pts_num 100000, capacity 524288) with one densify and one prune at full
 size. Then it builds the recipe's guidance stack at full SD1.5 width with
@@ -1489,6 +1494,95 @@ def train_phase(tag, gs0, sk, guidance, gen, cam_cfg, rcfg, n_steps: int,
         step_ms=[round(x, 3) for x in step_ms], peak_gib=round(peak_gib, 3),
         launches=launches, moved=moved)
     return ts, cfg, launches, med
+
+
+def flux_phase(gs0, sk, dev="cuda") -> dict:
+    """Guided stage-1 steps on the FLUX.1-dev stack at the published widths
+    (system/pipeline.py:build_random_flux_guidance: the transformer with
+    IP attention, the Union ControlNet, the 16-channel VAE, weights held
+    at bf16) at the recipe's sizes through make_train_step, three steps:
+    the parameters' bytes by model and dtype, each step's wall ms, the
+    second step's launches of each hand-written kernel (`check_launches`:
+    the render's K1 and K2; the 22 GroupNorms on K4 and the mid attention
+    on K5 in the views' encode, forward and backward, and again in the
+    pose maps' encode, forward only; no K3), the third step's spans'
+    device ms by name (under torch.profiler, host activity only: the
+    spans time the device by their own CUDA events), the peak memory, a
+    finite loss and the parameters moved. The stack is freed after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussianip_tpu_torch.data.sampler import CameraSamplerConfig
+    from gaussianip_tpu_torch.model.adam import AdamHyper
+    from gaussianip_tpu_torch.ops import groupnorm_cuda, vae_attention_cuda
+    from gaussianip_tpu_torch.render.render import RenderConfig
+    from gaussianip_tpu_torch.system import stage1 as s1
+    from gaussianip_tpu_torch.system.pipeline import (
+        build_random_flux_guidance)
+    from gaussianip_tpu_torch.utils import profiling
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    guidance = build_random_flux_guidance(seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = {}
+    for name, m in guidance.models._asdict().items():
+        for p in m.parameters():
+            k = f"{name}:{str(p.dtype).split('.')[-1]}"
+            held[k] = held.get(k, 0) + p.numel() * p.element_size()
+    step = s1.make_train_step(
+        s1.Stage1Config(render_height=RES, render_width=RES),
+        CameraSamplerConfig(height=RES, width=RES, batch_size=BATCH),
+        RenderConfig(d_max=D_MAX), AdamHyper(), guidance, sk.points3d)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ts = s1.init_train_state(gs0)
+    x0 = ts.gaussians.f_dc.clone()
+    ms, losses, by_span = [], [], {}
+
+    def timed():
+        nonlocal ts
+        t0 = time.perf_counter()
+        ts, m = step(ts, gen)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    timed()
+    _, launches = count_launches(timed)
+    profiling.spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        timed()
+    for r in profiling.spans():
+        by_span.setdefault(r["name"], [0.0, 0])
+        by_span[r["name"]][0] += r["device_ms"]
+        by_span[r["name"]][1] += 1
+    peak = torch.cuda.max_memory_allocated()
+    moved = float((ts.gaussians.f_dc - x0).abs().max())
+    if not (np.all(np.isfinite(losses)) and moved > 0):
+        raise AssertionError(f"flux: losses {losses}, moved {moved}")
+    nets = (guidance.models.unet, guidance.models.controlnet)
+    want = {"double_block": sum(len(n.double_blocks) for n in nets),
+            "single_block": sum(len(n.single_blocks) for n in nets)}
+    if {k: by_span.get(k, [0, 0])[1] for k in want} != want:
+        raise AssertionError(f"flux: block spans {by_span}, want {want}")
+    encodes = 2  # the views' (with backward) and the pose maps'
+    check_launches("flux", launches, {
+        "K1": 1, "K2": 1, "K3": 0, "K3_hopper": 0, "K3_general": 0,
+        "K4_fwd": 22 * groupnorm_cuda.FWD_KERNELS * encodes,
+        "K4_bwd": 22 * groupnorm_cuda.BWD_KERNELS,
+        "K5_fwd": vae_attention_cuda.fwd_launches(BATCH) * encodes,
+        "K5_bwd": vae_attention_cuda.bwd_launches(BATCH)})
+    out = {"build_s": round(build_s, 2), "param_bytes": held,
+           "step_ms": [round(x, 1) for x in ms], "loss": losses,
+           "launches": {k: v for k, v in launches.items() if v},
+           "peak_bytes": peak, "peak_gib": round(peak / 2 ** 30, 3),
+           "span_ms": {k: round(v[0], 3) for k, v in by_span.items()},
+           "span_count": {k: v[1] for k, v in by_span.items()}}
+    log("flux", **out)
+    del guidance, step, ts
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_launches(tag, got, want):
@@ -3901,6 +3995,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log("scene", points=PTS_NUM, capacity=gs0.capacity,
         n_active=gs0.n_active, seconds=round(time.perf_counter() - t0, 2))
+
+    # the FLUX.1-dev stack's guided steps at the published widths (alone
+    # with `python3 chip_smoke.py flux`)
+    flux = flux_phase(gs0, sk, dev)
+    if sys.argv[1:] == ["flux"]:
+        print(json.dumps({"ok": True, "flux": flux, "device": {
+            "name": kind, "smi": smi}}), flush=True)
+        return 0
 
     # 4. kernels vs plain at the slice's shapes
     rcfg = RenderConfig(d_max=D_MAX)

@@ -1,7 +1,9 @@
 """The flax layers the diffusion modules are built from, as torch modules
 with float32 parameters computed at a `dtype` (flax's `dtype` with
 `param_dtype` float32): Dense (nn.Dense), Conv (nn.Conv with an explicit
-padding) and LayerNorm (float32 statistics).
+padding) and LayerNorm (float32 statistics). A Dense may hold its
+parameters at another `param_dtype`: FLUX's are held at the dtype it
+computes in (diffusion/flux.py).
 
 Parameter names follow torch (`weight`, `bias`); `diffusion/from_flax.py`
 maps flax's `kernel` / `scale` onto them.
@@ -16,12 +18,15 @@ import torch.nn.functional as F
 
 class Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int,
-                 use_bias: bool = True, dtype=torch.float32):
+                 use_bias: bool = True, dtype=torch.float32,
+                 param_dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
-                     else None)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features,
+                                              dtype=param_dtype))
+                     if use_bias else None)
 
     def forward(self, x):
         dt = self.dtype

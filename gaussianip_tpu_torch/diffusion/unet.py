@@ -215,6 +215,9 @@ class _DownMid(nn.Module):
 
 
 class UNet2DConditionModel(_DownMid):
+    # what the denoiser predicts (guidance/ipa.py reads it)
+    prediction = "epsilon"
+
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg

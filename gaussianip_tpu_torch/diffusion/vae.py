@@ -18,6 +18,11 @@ The mid blocks' single-head attention (one 512-wide head) runs K5
 (ops/vae_attention_cuda.py), not SDPA: no fused SDPA backend takes a head
 that wide at the tensor cores' rate. The UNet's attention keeps
 `blocks.attend`.
+
+FLUX.1-dev's VAE has the same widths with 16 latent channels, no quant
+convs (`quant_convs` false: its config's use_quant_conv and
+use_post_quant_conv) and latents (z - shift_factor) * scaling_factor
+(FLUX_VAE_SCALING, FLUX_VAE_SHIFT).
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from .norm import GroupNorm
 
 SD_VAE_SCALING = 0.18215
 SDXL_VAE_SCALING = 0.13025  # the same widths, SDXL's latent scale
+FLUX_VAE_SCALING = 0.3611  # FLUX.1-dev's vae/config.json
+FLUX_VAE_SHIFT = 0.1159
 
 
 @dataclass(frozen=True)
@@ -44,6 +51,8 @@ class VAEConfig:
     latent_channels: int = 4
     norm_groups: int = 32
     scaling_factor: float = SD_VAE_SCALING
+    shift_factor: float = 0.0
+    quant_convs: bool = True
     dtype: torch.dtype = torch.float32
 
     @property
@@ -193,28 +202,39 @@ class AutoencoderKL(nn.Module):
         lc = cfg.latent_channels
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = Conv(2 * lc, 2 * lc, 1, dtype=cfg.dtype)
-        self.post_quant_conv = Conv(lc, lc, 1, dtype=cfg.dtype)
+        self.quant_conv = self.post_quant_conv = None
+        if cfg.quant_convs:
+            self.quant_conv = Conv(2 * lc, 2 * lc, 1, dtype=cfg.dtype)
+            self.post_quant_conv = Conv(lc, lc, 1, dtype=cfg.dtype)
 
     def encode_moments(self, images):
         """images [B, 3, H, W] in [-1, 1] -> (mean, logvar) latents."""
-        m = self.quant_conv(self.encoder(images))
+        m = self.encoder(images)
+        if self.quant_conv is not None:
+            m = self.quant_conv(m)
         mean, logvar = m.chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def encode(self, images, eps=None):
-        """-> scaled latents; with `eps` (the posterior's standard normal
-        draw, shaped like the latents) samples the posterior."""
+        """-> scaled (and shifted) latents; with `eps` (the posterior's
+        standard normal draw, shaped like the latents) samples the
+        posterior, else its mean."""
         mean, logvar = self.encode_moments(images)
         z = mean
         if eps is not None:
             z = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+        if self.cfg.shift_factor:
+            z = z - self.cfg.shift_factor
         return z * self.cfg.scaling_factor
 
     def decode(self, latents):
         """scaled latents -> images [B, 3, H, W] in [-1, 1]."""
-        return self.decoder(self.post_quant_conv(
-            latents / self.cfg.scaling_factor))
+        z = latents / self.cfg.scaling_factor
+        if self.cfg.shift_factor:
+            z = z + self.cfg.shift_factor
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z)
+        return self.decoder(z)
 
     def forward(self, images, eps=None):
         return self.decode(self.encode(images, eps))

@@ -8,10 +8,11 @@ and replays it after that, so a step's denoise costs the host a few
 copies and one graph launch.
 
 Where it engages (`engages`): a CUDA device and latents of at most
-MAX_LATENT^2, where the host sets the pace. Larger latents (SDXL's 128^2)
-keep the eager call for its spans (utils/profiling.py): a span records
-nothing inside a graph, and SDXL's per-layer timings read the `unet`,
-`controlnet` and `transformer` spans. The graph would not slow them: on
+MAX_LATENT^2, where the host sets the pace. Larger latents (SDXL's and
+FLUX's 128^2) keep the eager call for its spans (utils/profiling.py): a
+span records nothing inside a graph, and SDXL's per-layer timings read
+the `unet`, `controlnet` and `transformer` spans, FLUX's the
+`controlnet`, `flux`, `double_block` and `single_block` spans. The graph would not slow them: on
 an H100 at 700 W, SDXL's guided step took 561.8 ms from a graph against
 568.1 ms eager (medians of two runs each). CPU tensors always run
 eagerly.

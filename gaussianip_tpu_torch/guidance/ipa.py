@@ -19,6 +19,27 @@ identity tokens of ProjPlusModel appended (81 tokens), for both the UNet
 ControlNet (which attends over all 81). An SDXL stack (models with the
 added embedding) also takes each CFG row's pooled text embedding and the
 time ids of an image_size^2 image.
+
+A velocity prior (a denoiser whose `prediction` is "velocity":
+FLUX.1-dev's rectified-flow transformer and its Union ControlNet,
+diffusion/flux.py, in place of the UNet and the ControlNet) runs under
+the same AHDS schedule and ANPG gradient, which are written for an
+epsilon prediction on DDPM's alphas_cumprod a_t, through a bridge:
+  sigma_t = sqrt(1 - a_t) / (sqrt(a_t) + sqrt(1 - a_t)), the flow's noise
+    level with DDPM's signal-to-noise ratio at t;
+  x_t = (1 - sigma_t) z + sigma_t eps = c_t add_noise(z, eps, t), c_t =
+    1 / (sqrt(a_t) + sqrt(1 - a_t));
+  the transformer takes sigma_t; eps^ = x_t + (1 - sigma_t) v^, which is
+    eps exactly where v^ = eps - z.
+The three rows' eps^ feed anpg_grad as a UNet's would; w(t) and its t <
+170 mask stay on DDPM's t. The latents go to the networks packed 2 x 2
+(flux.pack). Each step also encodes the pose maps at image_size through
+the same VAE (the posterior mean, under no_grad; the span `pose_encode`)
+as the ControlNet's hint. The T5 tokens go to the transformer and the
+ControlNet, the pooled vector and the embedded guidance g
+(EMBEDDED_GUIDANCE) to their conditioning vector,
+the identity tokens to the transformer's IP projections only. The spans
+are `controlnet` and `flux`.
 """
 
 from __future__ import annotations
@@ -29,6 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 
+from ..diffusion.flux import pack, unpack
 from ..diffusion.scheduler import DDIMSchedule, add_noise, make_ddim_schedule
 from ..diffusion.unet import time_ids
 from ..ops.resize import linear_resize
@@ -68,15 +90,21 @@ class ImageEmbeds(NamedTuple):
 
 
 class GuidanceModels(NamedTuple):
-    unet: nn.Module
+    unet: nn.Module  # the denoiser: a UNet, or FLUX's transformer
     controlnet: nn.Module
     vae: nn.Module
+
+
+# g, the embedded guidance of the velocity prior's every CFG row
+# (FLUX.1-dev's pipeline's default guidance_scale)
+EMBEDDED_GUIDANCE = 3.5
 
 
 class AHDSGuidance:
     """Guidance for system/stage1.make_train_step. The models are frozen:
     their parameters take no gradient. `__call__` runs `predict_noise`
-    through `denoise_graph` (guidance/graph.py), whose graphs read the
+    (a velocity prior: `predict_velocity`) through `denoise_graph`
+    (guidance/graph.py), whose graphs read the
     parameters by address: a weight changed in place is seen by the next
     replay, a parameter rebound to a new tensor is not."""
 
@@ -165,6 +193,46 @@ class AHDSGuidance:
                           ip_scale=self.cfg.ipa_scale,
                           added_cond=added_cond).float()
 
+    def predict_velocity(self, latents, hint, sigma, txt, pooled, ip):
+        """One ControlNet + transformer pass of a velocity prior on an
+        already-expanded batch: latents [R, C, h, w] (x_t), hint the packed
+        pose latents, sigma [R] -> the velocity [R, C, h, w], float32."""
+        m = self.models
+        g = torch.full_like(sigma, EMBEDDED_GUIDANCE)
+        img = pack(latents)
+        samples = None
+        if self.cfg.use_pose_controlnet:
+            with span("controlnet"):
+                samples = m.controlnet(img, hint, sigma, g, txt, pooled)
+        with span("flux"):
+            return unpack(m.unet(img, sigma, g, txt, pooled, ip,
+                                 self.cfg.ipa_scale, samples)).float()
+
+    def _velocity_as_eps(self, latents_noisy, control, t, view_aux,
+                         n_way: int):
+        """[n_way B, C, h, w]: the velocity prior's eps^ of each CFG row
+        (the bridge of the module's docstring)."""
+        b = t.shape[0]
+        a = self.ddim.alphas_cumprod[t]
+        ra, rs = torch.sqrt(a), torch.sqrt(1.0 - a)
+        c = 1.0 / (ra + rs)
+        sigma = torch.cat([rs * c] * n_way)
+        x_t = torch.cat([c[:, None, None, None] * latents_noisy] * n_way)
+        with span("pose_encode"):
+            hint = pack(self.models.vae.encode(control * 2.0 - 1.0))
+        txt = self._text_rows(self.prompt_embeds, view_aux)[:n_way * b]
+        pooled = self._text_rows(self.prompt_embeds.pooled,
+                                 view_aux)[:n_way * b]
+        ip = None
+        if self.image_embeds is not None:
+            e = self.image_embeds
+            ip = torch.cat([x.expand(b, -1, -1)
+                            for x in (e.pos, e.neg, e.null)])[:n_way * b]
+        v = self.denoise_graph(self.predict_velocity, x_t,
+                               torch.cat([hint] * n_way), sigma, txt, pooled,
+                               ip)
+        return x_t + (1.0 - sigma)[:, None, None, None] * v
+
     def __call__(self, step: int, draws, rgb, control_img, view_aux):
         cfg = self.cfg
         b = rgb.shape[0]
@@ -178,14 +246,18 @@ class AHDSGuidance:
             latents_noisy = add_noise(self.ddim, latents.detach(),
                                       draws["noise"], t)
             n_way = 3 if cfg.use_anpg else 2
-            context = self._context(view_aux, b)[:n_way * b]
-            added = self._added_cond(view_aux)
-            if added is not None:
-                added = tuple(x[:n_way * b] for x in added)
-            pred = self.denoise_graph(
-                self.predict_noise, torch.cat([latents_noisy] * n_way),
-                torch.cat([control] * n_way), torch.cat([t] * n_way),
-                context, added)
+            if self.models.unet.prediction == "velocity":
+                pred = self._velocity_as_eps(latents_noisy, control, t,
+                                             view_aux, n_way)
+            else:
+                context = self._context(view_aux, b)[:n_way * b]
+                added = self._added_cond(view_aux)
+                if added is not None:
+                    added = tuple(x[:n_way * b] for x in added)
+                pred = self.denoise_graph(
+                    self.predict_noise, torch.cat([latents_noisy] * n_way),
+                    torch.cat([control] * n_way), torch.cat([t] * n_way),
+                    context, added)
             ac = self.ddim.alphas_cumprod
             if cfg.use_anpg:
                 e_pos, e_neg, e_null = pred.chunk(3)

@@ -67,7 +67,8 @@ def direction_index(elevation, azimuth, center_z, all_vis, camera_distances,
 class PromptEmbeddings(NamedTuple):
     """The prompt tables: [13, ...] view-dependent positive and negative
     rows, the null and the plain prompt's row. Text rows are [S, D]; SDXL
-    adds `pooled`, the same four tables of pooled text rows [P]."""
+    and FLUX add `pooled`, the same four tables of pooled text rows [P]
+    (OpenCLIP bigG's 1280 for SDXL, CLIP-L's 768 for FLUX)."""
     text_vd: torch.Tensor  # [13, S, D] view-dependent positive embeddings
     uncond_vd: torch.Tensor  # [13, S, D] negative embeddings
     null: torch.Tensor  # [S, D]

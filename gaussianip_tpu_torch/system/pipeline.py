@@ -18,6 +18,11 @@ gaussianip_tpu/system/pipeline.py).
     (`sdxl_unet_config`; an SDXL OpenPose ControlNet; FaceID PlusV2 SDXL's
     4 identity tokens at 2048; the SD VAE at SDXL's scaling factor; 77 x
     2048 text and 1280 pooled embeddings), guiding at 1024^2.
+  * `build_random_flux_guidance`: FLUX.1-dev's velocity prior
+    (`flux_config`: the transformer with IP identity attention, the Union
+    ControlNet in OpenPose mode, the 16-channel VAE), its weights held at
+    bf16, 512 x 4096 T5 and 768 pooled embeddings and 4 identity tokens
+    at 4096, guiding at 1024^2.
   * `build_stub_guidance_stack`: the tiny weight-free stack for smoke runs.
   * Stage 2 runs the same UNet, ControlNet and VAE (`refine_models`), with
     identity tokens at s_scale 0.5 (`random_refine_contexts`); stage 3's
@@ -37,6 +42,7 @@ import gaussianip_tpu_torch as gt
 
 from ..diffusion import weights as W
 from ..diffusion.from_flax import flax_state_dict
+from ..diffusion.flux import FluxConfig, FluxControlNet, FluxTransformer
 from ..diffusion.ip_adapter import ProjPlusModel
 from ..diffusion.lpips import LPIPS, VGG16_STAGES, convert_lpips_weights
 from ..diffusion.unet import (
@@ -45,7 +51,8 @@ from ..diffusion.unet import (
     UNetConfig,
     tiny_unet_config,
 )
-from ..diffusion.vae import (SDXL_VAE_SCALING, AutoencoderKL, VAEConfig,
+from ..diffusion.vae import (FLUX_VAE_SCALING, FLUX_VAE_SHIFT,
+                             SDXL_VAE_SCALING, AutoencoderKL, VAEConfig,
                              tiny_vae_config)
 from ..guidance.ipa import (
     AHDSGuidance,
@@ -93,6 +100,26 @@ def sdxl_unet_config(lora_rank: int = 0, ip_tokens: int = 4,
                       addition_time_embed_dim=256,
                       projection_class_embeddings_input_dim=2816,
                       lora_rank=lora_rank, ip_tokens=ip_tokens, dtype=dtype)
+
+
+def flux_config(num_layers: int = 19, num_single_layers: int = 38,
+                ip_tokens: int = 4, dtype=torch.bfloat16) -> FluxConfig:
+    """FLUX.1-dev's transformer (transformer/config.json: 24 heads of 128,
+    T5-XXL's 4096-wide tokens, CLIP-L's 768-wide pooled vector, RoPE axes
+    16 / 56 / 56, the embedded guidance) with `ip_tokens` identity tokens
+    at 4096 (XLabs' flux-ip-adapter); its Union ControlNet is
+    flux_config(5, 10, 0). Parameters are held at `dtype`."""
+    return FluxConfig(num_layers=num_layers,
+                      num_single_layers=num_single_layers,
+                      ip_tokens=ip_tokens, dtype=dtype)
+
+
+def flux_vae_config(dtype=torch.bfloat16) -> VAEConfig:
+    """FLUX.1-dev's VAE (vae/config.json): the SD VAE's widths, 16 latent
+    channels, no quant convs, (z - 0.1159) * 0.3611."""
+    return VAEConfig(latent_channels=16, scaling_factor=FLUX_VAE_SCALING,
+                     shift_factor=FLUX_VAE_SHIFT, quant_convs=False,
+                     dtype=dtype)
 
 
 def init_random_(module: nn.Module, generator: torch.Generator,
@@ -402,6 +429,48 @@ def build_random_sdxl_guidance(seed: int = 0,
                           grad_clip_pixel=True, grad_clip_threshold=1.0,
                           image_size=1024)
     return AHDSGuidance(GuidanceModels(unet, cn, vae), pe, img, gcfg)
+
+
+def build_random_flux_guidance(seed: int = 0,
+                               device="cuda") -> AHDSGuidance:
+    """The FLUX.1-dev guidance stack at full width with random weights
+    from `seed`, held and computed at bf16 (the VAE: float32 masters):
+    the transformer (`flux_config`, 4 identity tokens), the Union
+    ControlNet (5 + 10 blocks, OpenPose mode; its zero-initialised
+    Linears at ZERO_CONV_SCALE), the 16-channel VAE, fake 512 x 4096 T5
+    and 768 pooled embeddings of the recipe's prompts, N(0, 1) identity
+    tokens [1, 4, 4096] in place of XLabs' ImageProjModel's, and
+    GuidanceConfig of configs/exp.yaml at image_size 1024 with g 3.5; a
+    velocity prior."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch.bfloat16
+    flux = _build(lambda: FluxTransformer(flux_config(dtype=dtype)), gen,
+                  device)
+    cn = _build(lambda: FluxControlNet(flux_config(5, 10, 0, dtype)), gen,
+                device)
+    with torch.no_grad():
+        for name, p in cn.named_parameters():
+            if name.startswith(("controlnet_blocks.",
+                                "controlnet_single_blocks.",
+                                "controlnet_x_embedder.")):
+                p.mul_(ZERO_CONV_SCALE)
+    vae = _build(lambda: AutoencoderKL(flux_vae_config(dtype)), gen, device)
+    prompts = (RECIPE_PROMPT, RECIPE_NEGATIVE_PROMPT, "")
+    pe = make_prompt_embeddings(fake_text_encoder(512, 4096), *prompts,
+                                device=device)
+    p = make_prompt_embeddings(fake_text_encoder(1, 768), *prompts,
+                               device=device)
+    pe = pe._replace(pooled=PromptEmbeddings(
+        p.text_vd[:, 0], p.uncond_vd[:, 0], p.null[0], p.text[0]))
+    ids = torch.randn((3, 1, 4, 4096), generator=gen, device=device)
+    img = ImageEmbeds(pos=ids[0], null=ids[1], neg=ids[2])
+    gcfg = GuidanceConfig(guidance_scale=7.5, guidance_rescale=0.75,
+                          ipa_scale=0.5, use_anpg=True,
+                          use_pose_controlnet=True,
+                          view_dependent_prompting=True,
+                          grad_clip_pixel=True, grad_clip_threshold=1.0,
+                          image_size=1024)
+    return AHDSGuidance(GuidanceModels(flux, cn, vae), pe, img, gcfg)
 
 
 def build_stub_guidance_stack(prompt: str, negative_prompt: str,

@@ -193,7 +193,12 @@ def refine_views(models: RefineModels, images, control_images,
     every rank (8 of the 32 views, repeated), so that each rank holds the
     caches its dense views read without gathering them; each dense group's
     views split over the ranks, and their latents are gathered before the
-    decode. Every rank returns all 32 views."""
+    decode. Every rank returns all 32 views. A FLUX stack is refused:
+    the mutual attention rides on a UNet's self-attention."""
+    if models.unet.prediction != "epsilon":
+        raise ValueError("VCR's mutual attention is defined on a UNet's "
+                         "self-attention; a FLUX stack has none to refine "
+                         "with")
     n_views = images.shape[0]
     if n_views != 32:
         raise ValueError("the VCR topology is defined for 32 views")
